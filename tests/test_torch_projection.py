@@ -1,0 +1,120 @@
+"""Preprocess parity: eogs2_tpu_torch.ops.projection against eogs2_tpu's.
+
+The same seeded numpy inputs go through both packages on the CPU. Float
+fields agree within rtol 1e-5 (atol 1e-6 for entries that cancel to ~0:
+both sides run the same float32 expressions, so any difference is
+operation-order rounding); the integer fields (radius, tile rect, tiles
+touched) must be exactly equal, since they decide which tiles a Gaussian
+is binned into.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from eogs2_tpu.ops import projection as jproj
+from eogs2_tpu_torch.ops import projection as tproj
+from eogs2_tpu_torch.ops.gaussians import build_cov3d
+from tests.test_rasterizer import make_scene
+
+RTOL, ATOL = 1e-5, 1e-6
+INT_FIELDS = ("radius", "rect_min", "rect_size", "tiles_touched")
+
+
+def _t(x):
+    return torch.from_numpy(np.array(x))
+
+
+def _check_prep(jp, tp):
+    for name in jproj.Preprocessed._fields:
+        want = np.asarray(getattr(jp, name))
+        got = getattr(tp, name).numpy()
+        assert got.shape == want.shape, name
+        if name in INT_FIELDS:
+            np.testing.assert_array_equal(got, want, err_msg=name)
+        else:
+            np.testing.assert_allclose(got, want, rtol=RTOL, atol=ATOL,
+                                       err_msg=name)
+
+
+@pytest.mark.parametrize("seed,wh,antialiasing", [
+    (0, (64, 64), False),
+    (1, (80, 48), False),
+    (2, (128, 128), True),
+])
+def test_preprocess_matches_jax(seed, wh, antialiasing):
+    w, h = wh
+    means, scales, quats, opac, _, affine, _ = make_scene(n=256, seed=seed)
+    alive = np.random.RandomState(seed).rand(256) > 0.2
+    jc = jproj.compute_cov2d_direct(scales, quats, affine, w, h)
+    tc = tproj.compute_cov2d_direct(_t(scales), _t(quats), _t(affine), w, h)
+    np.testing.assert_allclose(tc.numpy(), np.asarray(jc), rtol=RTOL,
+                               atol=ATOL)
+    jp = jproj.preprocess_gaussians(means, None, opac, affine, w, h,
+                                    antialiasing=antialiasing,
+                                    alive=jnp.asarray(alive), cov2d=jc)
+    tp = tproj.preprocess_gaussians(_t(means), None, _t(opac), _t(affine),
+                                    w, h, antialiasing=antialiasing,
+                                    alive=_t(alive), cov2d=tc)
+    _check_prep(jp, tp)
+
+
+def test_preprocess_degenerate_determinants():
+    """Rank-deficient splats (det(cov2d) == 0, the antialiasing clamp) and
+    indefinite screen covariances (det <= 0 after dilation: culled with
+    radius 0) take the same branches in both packages."""
+    rng = np.random.RandomState(5)
+    n, w, h = 64, 64, 64
+    means, scales, quats, opac, _, affine, _ = make_scene(n=n, seed=9)
+    scales = np.asarray(scales).copy()
+    scales[:16, 1:] = 0.0  # needle: rank-1 covariance
+    scales[16:24] = 0.0  # point: zero covariance
+    cov = np.asarray(jproj.compute_cov2d_direct(
+        jnp.asarray(scales), quats, affine, w, h)).copy()
+    # indefinite: (cxx + .3)(cyy + .3) - cxy^2 < 0
+    cov[24:40, 0] = -1.0
+    cov[24:40, 2] = -1.0
+    cov[24:40, 1] = rng.uniform(0.8, 2.0, 16)
+    for aa in (False, True):
+        jp = jproj.preprocess_gaussians(means, None, opac, affine, w, h,
+                                        antialiasing=aa,
+                                        cov2d=jnp.asarray(cov))
+        tp = tproj.preprocess_gaussians(_t(means), None, _t(opac),
+                                        _t(affine), w, h, antialiasing=aa,
+                                        cov2d=_t(cov))
+        _check_prep(jp, tp)
+        assert (tp.radius[24:40] == 0).all()
+        assert (tp.radius[:24] > 0).any()
+
+
+def test_cov2d_direct_matches_composed():
+    """compute_cov2d_direct == build_cov3d + compute_cov2d with raw
+    (unnormalized) quaternions, values and gradients (mirrors
+    tests/test_ops.py's JAX check)."""
+    rng = np.random.RandomState(11)
+    n, w, h = 257, 96, 96
+    scales = torch.from_numpy(
+        np.exp(rng.normal(-3, 0.5, (n, 3))).astype(np.float32))
+    quats = torch.from_numpy(rng.normal(0, 1, (n, 4)).astype(np.float32))
+    affine = torch.tensor([[1.0, 0.05, 0.3, 0.0], [0.02, 1.0, -0.2, 0.0],
+                           [0.0, 0.0, 1.0, 0.0]])
+    wts = torch.from_numpy(rng.uniform(-1, 1, (n, 3)).astype(np.float32))
+
+    def composed(s, q, a):
+        return tproj.compute_cov2d(build_cov3d(s, q), a, w, h)
+
+    def direct(s, q, a):
+        return tproj.compute_cov2d_direct(s, q, a, w, h)
+
+    np.testing.assert_allclose(composed(scales, quats, affine).numpy(),
+                               direct(scales, quats, affine).numpy(),
+                               atol=1e-5, rtol=1e-5)
+    grads = []
+    for fn in (composed, direct):
+        args = [x.clone().requires_grad_(True) for x in (scales, quats, affine)]
+        (wts * fn(*args)).sum().backward()
+        grads.append([a.grad.numpy() for a in args])
+    for a_, b_ in zip(*grads):
+        scale = np.abs(a_).max() + 1e-6
+        np.testing.assert_allclose(a_ / scale, b_ / scale, atol=1e-5)

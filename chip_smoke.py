@@ -6,10 +6,10 @@
 Run from the root of a checkout on a machine with an NVIDIA Hopper card and
 the CUDA toolkit. It builds every kernel from the sources in the checkout,
 holds each against its plain PyTorch version on the card, drives the serving
-path at full width and checks what comes out. Every phase prints one JSON
-line; any failure raises, so the exit code is non-zero and the final
-``{"ok": true, ...}`` line is never printed. Without a CUDA device it exits
-with code 1 before doing anything.
+path and the training path at full width and checks what comes out. Every
+phase prints one JSON line; any failure raises, so the exit code is non-zero
+and the final ``{"ok": true, ...}`` line is never printed. Without a CUDA
+device it exits with code 1 before doing anything.
 
 Phases:
   1. card name and power limit (nvidia-smi), kernel build time;
@@ -28,7 +28,25 @@ Phases:
      run of each entry point (device time by kernel, device busy share);
      K1 against its plain version at each of the three renders' exact
      inputs, with its time, the plain version's and its bound;
-  4. the kernel table line, then the last line.
+  4. K2 (csrc/fused_blend_bwd.cu) against fused_blend_bwd_plain on the same
+     three scenes with a seeded random cotangent, per payload row max-abs
+     error over the row's max-abs value <= 2e-4 (tests/test_golden.py's
+     gradient tolerance); plus every input's gradient of a 128x128 render
+     through the kernels against the plain versions on the CPU (same
+     tolerance);
+  5. the training path at full width: the synthetic scene of
+     scripts/train_scale.py (7 views at 1024x1024, hf_res 768, 24
+     buildings, seed 11) at scale 142, whose uniform init keeps about 1.0M
+     points, built in memory; the baseogs recipe with the sun and random
+     camera on from iteration 1 (every step renders main 1024^2, sun 2048^2
+     and random 1024^2, each forward and backward) on the fused route with
+     tile_cull; 2 warm-up steps, then 10 timed steps, each ending in
+     torch.cuda.synchronize(); K1 and K2 launches over the timed steps,
+     peak memory, every metric finite, parameters moved, alive before and
+     after; one profiled step; K1 and K2 at the main render's exact inputs
+     of a step (captured from the step), with their times, the plain
+     versions' and their bounds;
+  6. the kernel table line, then the last line.
 """
 
 from __future__ import annotations
@@ -289,6 +307,72 @@ def k1_bound(sp, grid_x):
                 evaluations_without_early_exit=int(sp.cnt.long().sum()) * 256)
 
 
+def compare_k2(sp, grid_x, out8, seed=0):
+    """K2 vs its plain version on the same inputs and a seeded random
+    cotangent -> (report, kernel g_pay, g_out8)."""
+    import torch
+
+    gen = torch.Generator(device=out8.device).manual_seed(seed)
+    g_out8 = torch.randn(out8.shape, generator=gen, device=out8.device)
+    return compare_k2_at(sp, grid_x, out8, g_out8) + (g_out8,)
+
+
+def compare_k2_at(sp, grid_x, out8, g_out8):
+    import torch
+
+    from eogs2_tpu_torch.ops.fused_raster import (fused_blend_bwd,
+                                                  fused_blend_bwd_plain)
+
+    k = fused_blend_bwd(sp.pay, sp.tstart, sp.cnt, out8, g_out8, grid_x)
+    p = fused_blend_bwd_plain(sp.pay, sp.tstart, sp.cnt, out8, g_out8, grid_x)
+    torch.cuda.synchronize()
+    scale = p.abs().amax(dim=1)
+    live = scale > 0  # a row with no gradient (the constant row) must stay 0
+    err_rows = ((k - p).abs().amax(dim=1) / scale.clamp_min(1e-30))
+    rep = dict(pairs=int(sp.pay.shape[1]),
+               max_row_rel_err=float(err_rows[live].max()),
+               max_abs_err=float((k - p).abs().max()),
+               rows_without_gradient=int((~live).sum()))
+    if not (rep["max_row_rel_err"] <= K2_ROW_TOL
+            and bool((k[~live] == 0).all()) and bool(torch.isfinite(k).all())):
+        raise AssertionError(f"K2 disagrees with its plain version: {rep}")
+    return rep, k
+
+
+# K2's FP32 operations: per pair-pixel evaluation (each pixel evaluates the
+# pairs before its last composite) the recomputation K1 does (17); per
+# contributing (kept, live) pair-pixel: 1 - alpha, T (1 - alpha), the T_EPS
+# test, alpha T (4), fdot (9), prefix (2), suffix (1), g_alpha (4), gG (2),
+# the 11 payload gradients (25) and their 11 sums over the tile's pixels (11)
+K2_OPS_PER_EVAL, K2_OPS_PER_CONTRIB = 17, 58
+K2_OPS_PER_PIXEL = 10  # total = acc . g_pix (9), final_T g_ft (1)
+K2_ROW_TOL = 2e-4
+
+
+def k2_bound(sp, grid_x, out8):
+    """Least time the card needs for this K2 call: the larger of the bytes
+    it must move (the payload up to each tile's deepest walk, g_pay written
+    for every pair, out8 and g_out8 read, the tile ranges) over the HBM
+    rate and its FP32 operations over the FP32 peak. Evaluations are the
+    pixels' walk lengths (out8 channel 6), contributions the composites K1
+    made (k1_work)."""
+    _, comps, _ = k1_work(sp, grid_x)
+    last = out8[..., 6].double()
+    evals = int(last.sum())
+    read = int(last.amax(dim=1).sum())
+    n_tiles = sp.tstart.shape[0]
+    bytes_ = (K1_BYTES_PER_PAIR * (read + int(sp.pay.shape[1]))
+              + 2 * n_tiles * 256 * 8 * 4 + 8 * n_tiles)
+    ops = (K2_OPS_PER_EVAL * evals + K2_OPS_PER_CONTRIB * comps
+           + K2_OPS_PER_PIXEL * n_tiles * 256)
+    t_bytes = bytes_ / H100_BYTES_PER_S * 1e3
+    t_ops = ops / H100_FP32_FLOPS * 1e3
+    return dict(bound_ms=max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes >= t_ops else "operations",
+                bytes=bytes_, ops=ops, evaluations=evals, contributions=comps,
+                pairs_read=read)
+
+
 # ----------------------------------------------------------------------------
 # phases
 # ----------------------------------------------------------------------------
@@ -345,7 +429,9 @@ def phase_k1_small(device):
 def profile_run(fn, top=12):
     """One run of fn under torch.profiler: the device time of each kernel
     and copy, the device's busy share of the run's wall time (the
-    profiler's own cost included), and the top kernels by device time."""
+    profiler's own cost included), the top kernels by device time, and the
+    top PyTorch operators by the device time of the kernels they launched
+    themselves (which operator a kernel belongs to)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -359,16 +445,24 @@ def profile_run(fn, top=12):
         wall_ms = (time.perf_counter() - t) * 1e3
     # device-side events only (kernels, copies): a CPU op's device time is
     # its kernels' time counted a second time
+    events = prof.key_averages()
     rows = [(e.key, e.self_device_time_total / 1e3, e.count)
-            for e in prof.key_averages()
+            for e in events
             if e.device_type == DeviceType.CUDA
             and e.self_device_time_total > 0]
     rows.sort(key=lambda r: -r[1])
+    ops = [(e.key, e.self_device_time_total / 1e3, e.count)
+           for e in events
+           if e.device_type == DeviceType.CPU
+           and e.self_device_time_total > 0]
+    ops.sort(key=lambda r: -r[1])
     device_ms = sum(r[1] for r in rows)
     return dict(wall_ms=wall_ms, device_ms=device_ms,
                 device_busy_share=device_ms / wall_ms,
                 kernels=[dict(name=k[:80], ms=ms, calls=c)
-                         for k, ms, c in rows[:top]])
+                         for k, ms, c in rows[:top]],
+                operators=[dict(name=k[:60], ms=ms, calls=c)
+                           for k, ms, c in ops[:top]])
 
 
 def phase_serve(device, n=1_000_000, width=1024):
@@ -483,6 +577,199 @@ def phase_serve(device, n=1_000_000, width=1024):
     return per_render, launches_rvf + launches_nadir
 
 
+def phase_k2_small(device, w=256, n=20000):
+    import torch
+
+    from eogs2_tpu_torch.ops.fused_raster import fused_blend_fwd
+    from eogs2_tpu_torch.rasterizer import RasterizeConfig, rasterize
+
+    scenes = {
+        "both_signs": (random_scene(n, w, seed=1), False),
+        "both_signs_tile_cull": (random_scene(n, w, seed=1), True),
+        "dense_saturating": (random_scene(n, w, seed=2, scale_px=(2.0, 6.0),
+                                          opac=(0.5, 0.99)), True),
+    }
+    errs = []
+    for name, (arrs, cull) in scenes.items():
+        t = [torch.as_tensor(a, device=device) for a in arrs]
+        sp = sorted_inputs(*t[:6], w, w, tile_cull=cull)
+        out8 = fused_blend_fwd(sp.pay, sp.tstart, sp.cnt, w // 16)
+        rep, _, _ = compare_k2(sp, w // 16, out8)
+        errs.append(rep["max_row_rel_err"])
+        log(dict(phase="k2_vs_plain", scene=name, width=w, height=w,
+                 tile_cull=cull, **rep, **CARD))
+
+    # every input's gradient through the kernels vs the plain versions
+    ct = np.random.RandomState(0).normal(size=(5, 128, 128)).astype(np.float32)
+    grads = []
+    for dev in (device, torch.device("cpu")):
+        arrs = random_scene(512, 128, seed=7, scale_px=(1.0, 5.0))
+        leaves = [torch.tensor(a, device=dev, requires_grad=True)
+                  for a in arrs[:6]]
+        off = torch.zeros((512, 2), device=dev, requires_grad=True)
+        out = rasterize(*leaves, torch.tensor(arrs[6], device=dev), 128, 128,
+                        RasterizeConfig(binning_mode="fused",
+                                        eogs_features=True),
+                        mean2d_ndc_offset=off)
+        (out.image * torch.from_numpy(ct).to(dev)).sum().backward()
+        grads.append([x.grad.cpu() for x in leaves + [off]])
+    names = ("means", "scales", "quats", "opacities", "features", "affine",
+             "mean2d_ndc_offset")
+    rel = {k: float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
+           for k, a, b in zip(names, *grads)}
+    log(dict(phase="rasterize_grads_card_vs_cpu", width=128, height=128,
+             max_normalised_err=rel, **CARD))
+    if max(rel.values()) > K2_ROW_TOL:
+        raise AssertionError(f"gradients on the card disagree: {rel}")
+    return max(errs)
+
+
+class capture_blend_calls:
+    """Within the block, record what every differentiable blend of the
+    fused route receives: the payload of each forward, and each backward's
+    K2 inputs (payload, ranges, out8, cotangent, grid_x). rasterize_fused
+    reads FusedBlend from its module, so the block swaps in a subclass that
+    records and then runs the original forward and backward (the kernels
+    launch and count as usual)."""
+
+    def __enter__(self):
+        from eogs2_tpu_torch.ops import fused_raster as fr
+
+        self.fr, orig = fr, fr.FusedBlend
+        self.fwd_pays, self.bwd_calls = [], []
+        cap = self
+
+        class Recording(orig):
+            @staticmethod
+            def forward(ctx, pay, tstart, cnt, grid_x):
+                cap.fwd_pays.append(pay.detach())
+                return orig.forward(ctx, pay, tstart, cnt, grid_x)
+
+            @staticmethod
+            def backward(ctx, g_out8):
+                pay, tstart, cnt, out8 = ctx.saved_tensors
+                cap.bwd_calls.append((pay.detach(), tstart, cnt,
+                                      out8.detach(),
+                                      g_out8.detach().contiguous(),
+                                      ctx.grid_x))
+                return orig.backward(ctx, g_out8)
+
+        self.orig, fr.FusedBlend = orig, Recording
+        return self
+
+    def __exit__(self, *exc):
+        self.fr.FusedBlend = self.orig
+
+
+def phase_train(device, width=1024, scale=142.0, n_views=7, hf_res=768,
+                n_buildings=24, warmup=2, timed=10):
+    import torch
+
+    from eogs2_tpu_torch.config import baseogs
+    from eogs2_tpu_torch.data.synthetic import (make_scene_arrays,
+                                                scene_from_arrays)
+    from eogs2_tpu_torch.ops.fused_raster import (SortedPairs,
+                                                  fused_blend_bwd,
+                                                  fused_blend_bwd_plain,
+                                                  fused_blend_fwd,
+                                                  fused_blend_fwd_plain)
+    from eogs2_tpu_torch.ops.knn import mean_knn_dist2
+    from eogs2_tpu_torch.rasterizer import RasterizeConfig
+    from eogs2_tpu_torch.train import Trainer, mean_metrics
+
+    t0 = time.perf_counter()
+    arrays = make_scene_arrays(n_views=n_views, width=width, height=width,
+                               hf_res=hf_res, n_buildings=n_buildings,
+                               seed=11, scale=scale)
+    scene = scene_from_arrays(arrays, device=device)
+    scene_s = time.perf_counter() - t0
+    n_init = len(scene.init_xyz)
+    log(dict(phase="train_scene", init_gaussians=n_init,
+             train_views=len(scene.train_views), width=width, scale=scale,
+             host_s=scene_s, **CARD))
+    t0 = time.perf_counter()
+    mean_knn_dist2(torch.tensor(scene.init_xyz, device=device))
+    torch.cuda.synchronize()
+    knn_s = time.perf_counter() - t0
+
+    cfg = baseogs(iterations=warmup + timed)
+    cfg.optimization.iterstart_shadowmapping = 0
+    cfg.optimization.iterstart_L_new_resample = 0
+    rcfg = RasterizeConfig(binning_mode="fused", tile_cull=True)
+    t0 = time.perf_counter()
+    tr = Trainer(cfg, scene, rcfg, device=device).setup()
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    start = {f: getattr(tr.model, f).detach().clone()
+             for f in ("xyz", "features_dc", "scaling", "rotation", "opacity")}
+    alive0 = int(tr.model.alive.sum())
+
+    tr.train(warmup, progress=False)
+    torch.cuda.synchronize()
+    # the counted, timed run: counts set to 0 just before, read just after
+    torch.cuda.reset_peak_memory_stats()
+    fused_blend_fwd.launches = 0
+    fused_blend_bwd.launches = 0
+    steps, step_ms = [], []
+    for it in range(warmup + 1, warmup + timed + 1):
+        t = time.perf_counter()
+        steps.append(tr.train_step(it))
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t) * 1e3)
+    k1_launches, k2_launches = fused_blend_fwd.launches, fused_blend_bwd.launches
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    if k1_launches != 3 * timed or k2_launches != 3 * timed:
+        raise AssertionError(f"launches over {timed} steps: K1 {k1_launches}, "
+                             f"K2 {k2_launches} (want {3 * timed} each)")
+    metrics = mean_metrics(steps)
+    every = torch.stack([torch.stack([m[k].double() for k in m])
+                         for m in steps])
+    if not bool(torch.isfinite(every).all()):
+        raise AssertionError(f"non-finite metrics: {metrics}")
+    moved = {f: float((getattr(tr.model, f).detach() - x).abs().max())
+             for f, x in start.items()}
+    if min(moved.values()) <= 0:
+        raise AssertionError(f"parameters did not move: {moved}")
+    alive1 = int(tr.model.alive.sum())
+    log(dict(phase="train", init_gaussians=n_init,
+             capacity=int(tr.model.xyz.shape[0]), width=width,
+             recipe="baseogs, sun and random camera from iteration 1",
+             config="fused, tile_cull, eogs_features",
+             ms_per_step=statistics.median(step_ms), step_ms=step_ms,
+             k1_launches_per_step=k1_launches / timed,
+             k2_launches_per_step=k2_launches / timed, peak_mem_gib=peak_gib,
+             scene_host_s=scene_s, knn_s=knn_s, setup_s=setup_s,
+             alive_before=alive0, alive_after=alive1, max_param_change=moved,
+             metrics=metrics, **CARD))
+
+    log(dict(phase="train_profile",
+             **profile_run(lambda: tr.train_step(warmup + timed + 1)), **CARD))
+
+    # K1 and K2 at the main render's exact inputs of one step
+    with capture_blend_calls() as cap:
+        tr.train_step(warmup + timed + 2)
+        torch.cuda.synchronize()
+    main_ptr = cap.fwd_pays[0].data_ptr()  # the main view renders first
+    pay, tstart, cnt, out8, g_out8, gx = next(
+        c for c in cap.bwd_calls if c[0].data_ptr() == main_ptr)
+    del cap
+    sp = SortedPairs(pay, tstart, cnt, None)
+    rep, _ = compare_k2_at(sp, gx, out8, g_out8)
+    rep["ms"] = time_cuda(
+        lambda: fused_blend_bwd(pay, tstart, cnt, out8, g_out8, gx), 10)
+    rep["plain_ms"] = time_cuda(
+        lambda: fused_blend_bwd_plain(pay, tstart, cnt, out8, g_out8, gx), 1)
+    rep.update(k2_bound(sp, gx, out8))
+    k1 = dict(ms=time_cuda(lambda: fused_blend_fwd(pay, tstart, cnt, gx), 10),
+              plain_ms=time_cuda(
+                  lambda: fused_blend_fwd_plain(pay, tstart, cnt, gx), 1),
+              **k1_bound(sp, gx))
+    log(dict(phase="k2_at_train_shape", render="main", width=width,
+             height=width, max_tile_count=int(cnt.max()), **rep,
+             k1_at_same_render=k1, **CARD))
+    return rep, k1_launches, k2_launches
+
+
 def main() -> int:
     import torch
 
@@ -500,7 +787,9 @@ def main() -> int:
 
     phase_build()
     phase_k1_small(device)
-    per_render, launches = phase_serve(device)
+    k2_small_err = phase_k2_small(device)
+    per_render, serve_launches = phase_serve(device)
+    k2, k1_train, k2_train = phase_train(device)
 
     view = per_render["view"]
     log({"kernels": [{
@@ -508,7 +797,7 @@ def main() -> int:
         "route": "cuda",
         "source": "eogs2_tpu_torch/csrc/fused_blend_fwd.cu",
         "replaces": "eogs2_tpu/ops/fused_raster.py:532",
-        "launches": launches,
+        "launches": serve_launches + k1_train,
         "max_abs_err": max(max(r["max_abs_err_ch0_4"],
                                r["max_abs_err_final_t"])
                            for r in per_render.values()),
@@ -516,6 +805,19 @@ def main() -> int:
         "plain_ms": view["plain_ms"],
         "bound_ms": view["bound_ms"],
         "bound_by": view["bound_by"],
+        "library_ms": None,
+    }, {
+        "name": "fused_blend_bwd",
+        "route": "cuda",
+        "source": "eogs2_tpu_torch/csrc/fused_blend_bwd.cu",
+        "replaces": "eogs2_tpu/ops/fused_raster.py:614",
+        "launches": k2_train,
+        "max_abs_err": k2["max_abs_err"],
+        "max_row_rel_err": max(k2["max_row_rel_err"], k2_small_err),
+        "ms": k2["ms"],
+        "plain_ms": k2["plain_ms"],
+        "bound_ms": k2["bound_ms"],
+        "bound_by": k2["bound_by"],
         "library_ms": None,
     }]})
     print(json.dumps({"ok": True, "device": {

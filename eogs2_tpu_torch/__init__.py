@@ -5,9 +5,12 @@ which stays the reference). Module layout and names mirror ``eogs2_tpu``
 so each counterpart is easy to find. This package imports neither JAX nor
 anything of ``eogs2_tpu``.
 
-Ported so far: the serving path — forward render on the ``fused`` route
-(preprocess -> demand-sized emission + sort -> the K1 blend kernel,
-``csrc/fused_blend_fwd.cu``), sun resampling, shading and the Nadir DSM.
+Ported so far, on the ``fused`` raster route: the serving path (preprocess
+-> demand-sized emission + sort -> the K1 blend kernel,
+``csrc/fused_blend_fwd.cu``; sun resampling, shading, the Nadir DSM) and
+the training path of the baseogs recipe (``train.Trainer``: three renders
+per step, each backward through the K2 kernel ``csrc/fused_blend_bwd.cu``,
+the loss stack, Adam, densification statistics, pruning).
 """
 
 __version__ = "0.1.0"

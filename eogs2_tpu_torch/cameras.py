@@ -80,6 +80,22 @@ class AffineCamera:
         cam = self.replace(affine=torch.cat([M @ A, new_b[:, None]], dim=1))
         return cam, M
 
+    def random_camera(self, shear_draw, extent: float):
+        """Randomly UV-sheared virtual camera for the consistency loss
+        (sample_random_camera, affine_cameras.py:403-430):
+        M[:2, 2] += clip(shear_draw, -1, 1) * extent, where shear_draw is a
+        standard-normal draw [2] the caller makes (JAX draws it from a key
+        inside; here a test can feed JAX's draw). Returns (camera, M)."""
+        A = self.affine[:, :3]
+        b = self.affine[:, 3]
+        shear = torch.clamp(shear_draw.to(A), -1.0, 1.0) * extent
+        eye = torch.eye(3, dtype=A.dtype, device=A.device)
+        M = eye.clone()
+        M[:2, 2] = M[:2, 2] + shear
+        new_b = (eye - M) @ (A @ self.centerofscene) + b
+        cam = self.replace(affine=torch.cat([M @ A, new_b[:, None]], dim=1))
+        return cam, M
+
     def resize_canvas(self, new_width: int, new_height: int) -> "AffineCamera":
         """Rescale the NDC frame so rendering at (new_w, new_h) reproduces the
         native pixel mapping on the overlap (pads to a common canvas)."""

@@ -125,15 +125,17 @@ def init_from_points(
 
     Scale init = log(sqrt(clamp(mean 3-NN squared distance, 1e-7))),
     isotropic; rotation = identity; opacity = logit(opacity_init_value);
-    slots [N:] start dead. mean_knn_dist2 ([N]) is required: the kNN
-    (ops/knn.py) is ported with the training slice."""
-    if mean_knn_dist2 is None:
-        raise NotImplementedError(
-            "pass mean_knn_dist2: the kNN is ported with the training slice"
-        )
+    slots [N:] start dead. mean_knn_dist2 ([N]) is computed on ``device``
+    by ops/knn.py when None."""
     n = xyz.shape[0]
     if capacity < n:
         raise ValueError(f"capacity {capacity} is below the {n} points")
+    if mean_knn_dist2 is None:
+        from eogs2_tpu_torch.ops.knn import mean_knn_dist2 as knn
+
+        pts = torch.tensor(np.asarray(xyz, np.float32),
+                           device=resolve_device(device))
+        mean_knn_dist2 = knn(pts).cpu().numpy()
     dist2 = np.maximum(np.asarray(mean_knn_dist2), 1e-7)
     scales = np.log(np.sqrt(dist2))[:, None].repeat(3, axis=1)
 
@@ -164,3 +166,17 @@ def init_from_points(
         sh_degree=sh_degree,
         device=device,
     )
+
+
+@torch.no_grad()
+def add_densification_stats(model: GaussianModel, grad_ndc, radii) -> None:
+    """Accumulate ||dL/dmean2d_ndc||_2 of the visible Gaussians
+    (gaussian_model.py:719-723) and track the largest screen radius
+    (train_pan.py:683-686). Updates the model's buffers in place."""
+    visible = radii > 0
+    norm = torch.linalg.vector_norm(grad_ndc[:, :2], dim=-1)
+    model.xyz_gradient_accum += torch.where(visible, norm, 0.0)
+    model.denom += visible.to(model.denom.dtype)
+    torch.maximum(model.max_radii2d,
+                  torch.where(visible, radii.to(model.max_radii2d.dtype), 0.0),
+                  out=model.max_radii2d)

@@ -28,6 +28,17 @@ Differences from the JAX package, all deliberate:
     a/b/c, opacity, 5 features), 44 B/pair. The TPU layout knobs
     (payload_col, k_chunk, early_exit, tile_chunk) only change the JAX
     kernels' layout, never their output, and are ignored.
+
+Backward: K2 (``csrc/fused_blend_bwd.cu``) writes dL/d(payload) per SORTED
+pair row (every row belongs to exactly one tile, so no atomics). The rows
+go back to per-Gaussian gradients in ``_GatherPairs.backward`` without
+atomics either: the emission is Gaussian-major, so scattering the sorted
+rows back through the sort's permutation (a permutation: no two rows
+collide) leaves each Gaussian's rows contiguous, and one segment sum
+(``torch.segment_reduce``, sequential within each segment) adds them in a
+fixed order. Gradients are therefore deterministic run to run; JAX does the
+same with a return sort and ``emission_reduce``. Autograd of a plain
+``index_select`` would use ``index_add_``, which is atomic on CUDA.
 """
 
 from __future__ import annotations
@@ -72,13 +83,40 @@ def depth_key(depth):
     return torch.where(bits < 0, ~bits & 0xFFFFFFFF, bits | 0x80000000)
 
 
+class _GatherPairs(torch.autograd.Function):
+    """cols [k, N] -> cols[:, sgid] [k, P], with a deterministic backward.
+
+    perm [P] is the sort's permutation (sorted row i came from emission row
+    perm[i]) and lengths [N] the pairs of each Gaussian in the
+    Gaussian-major emission (see the module docstring)."""
+
+    @staticmethod
+    def forward(ctx, cols, sgid, perm, lengths):
+        ctx.save_for_backward(perm, lengths)
+        return cols.index_select(1, sgid)
+
+    @staticmethod
+    def backward(ctx, g_pay):
+        perm, lengths = ctx.saved_tensors
+        k, n = g_pay.shape[0], lengths.shape[0]
+        if perm.shape[0] == 0:
+            return g_pay.new_zeros((k, n)), None, None, None
+        g_em = g_pay.new_empty((perm.shape[0], k))
+        g_em[perm] = g_pay.t()  # back to emission order
+        g = torch.segment_reduce(g_em, "sum", lengths=lengths, axis=0,
+                                 unsafe=True)  # [N, k]
+        return g.t(), None, None, None
+
+
 def sort_pairs(prep: Preprocessed, features, width: int, height: int,
                tile_cull: bool = False, eogs: bool = False) -> SortedPairs:
     """Emission, sort and tile ranges; the sorted payload for K1.
 
     eogs: features are [rgb, altitude, 1]; the sort depth is then
-    -features[:, 3], the altitude row is rebuilt from the sorted key and the
-    constant row from ones (as eogs2_tpu's _fused_fwd does)."""
+    -features[:, 3] (detached, as eogs2_tpu's _fused_fwd keys it), and the
+    constant row is built from ones, so it carries no gradient (JAX returns
+    zeros for it). The altitude row is features[:, 3] itself, bit-equal to
+    the negated sort depth, and carries the altitude gradient to xyz."""
     grid_x, grid_y = grid_dims(width, height)
     n_tiles = grid_x * grid_y
     keys = Preprocessed(*(x.detach() for x in prep))
@@ -86,23 +124,65 @@ def sort_pairs(prep: Preprocessed, features, width: int, height: int,
     gid, tile = emit_pairs(keys, grid_x, tile_cull=tile_cull)
     key = (tile << 32) | depth_key(depth)[gid]
     skey, perm = torch.sort(key, stable=True)
+    lengths = torch.bincount(gid, minlength=depth.shape[0])
     gid = gid[perm]
     cols = [prep.mean2d[:, 0], prep.mean2d[:, 1], prep.conic[:, 0],
             prep.conic[:, 1], prep.conic[:, 2], prep.opacity]
     if eogs:
-        cols += [features[:, j] for j in range(3)]
+        cols += [features[:, j] for j in range(4)]
+        cols.append(torch.ones_like(depth))
     else:
         cols += [features[:, j] for j in range(features.shape[1])]
-    pay = torch.stack(cols, 0).index_select(1, gid)
-    if eogs:
-        sdepth = depth[gid]
-        pay = torch.cat([pay, -sdepth[None], torch.ones_like(sdepth)[None]])
+    pay = _GatherPairs.apply(torch.stack(cols, 0), gid, perm, lengths)
     bounds = torch.searchsorted(
         skey >> 32, torch.arange(n_tiles + 1, device=skey.device)
     )
     tstart = bounds[:-1].to(torch.int32)
     cnt = (bounds[1:] - bounds[:-1]).to(torch.int32)
     return SortedPairs(pay.contiguous(), tstart, cnt, gid)
+
+
+def _tile_chunks(cnt, chunk_elems: int):
+    """(t0, t1, k_len) ranges of tiles whose padded pair-pixel block holds
+    at most ~chunk_elems values; k_len is the chunk's longest range."""
+    n_tiles = cnt.shape[0]
+    cnt_host = cnt.cpu()
+    kmax = max(int(cnt_host.max()), 1) if n_tiles else 1
+    tc = max(1, chunk_elems // (P * kmax))
+    for t0 in range(0, n_tiles, tc):
+        t1 = min(t0 + tc, n_tiles)
+        yield t0, t1, int(cnt_host[t0:t1].max())
+
+
+def _chunk_fields(pay, tstart, cnt, grid_x, t0, t1, k_len):
+    """The blend's per pair-pixel quantities for tiles [t0, t1), as the
+    kernels compute them: (idx, valid, g, dx, dy, G, alpha, keep, cp,
+    live, t_before, w), pair-pixel arrays [tc, K, P]."""
+    dev = pay.device
+    lpix = torch.arange(P, device=dev)
+    ids = torch.arange(t0, t1, device=dev)
+    k = torch.arange(k_len, device=dev)
+    valid = k[None, :] < cnt[t0:t1, None]  # [tc, K]
+    idx = torch.clamp(tstart[t0:t1, None].to(torch.int64) + k[None, :],
+                      max=max(pay.shape[1] - 1, 0))
+    g = pay[:, idx]  # [NF, tc, K]
+    px = ((ids % grid_x) * TILE).to(torch.float32)[:, None] + \
+        (lpix % TILE).to(torch.float32)  # [tc, P]
+    py = ((ids // grid_x) * TILE).to(torch.float32)[:, None] + \
+        (lpix // TILE).to(torch.float32)
+    dx = g[0][..., None] - px[:, None, :]  # [tc, K, P]
+    dy = g[1][..., None] - py[:, None, :]
+    a, b, c = g[2][..., None], g[3][..., None], g[4][..., None]
+    power = -0.5 * (a * dx * dx + c * dy * dy) - b * dx * dy
+    G = torch.exp(torch.clamp_max(power, 0.0))
+    alpha_raw = torch.clamp_max(g[5][..., None] * G, ALPHA_MAX)
+    keep = valid[..., None] & (power <= POWER_TOL) & (alpha_raw >= ALPHA_EPS)
+    alpha = torch.where(keep, alpha_raw, 0.0)
+    cp = torch.cumprod(1.0 - alpha, dim=1)  # T after each pair
+    live = cp >= T_EPS
+    t_before = torch.cat([torch.ones_like(cp[:, :1]), cp[:, :-1]], dim=1)
+    w = torch.where(live, alpha * t_before, 0.0)
+    return idx, valid, g, dx, dy, G, alpha, keep, cp, live, t_before, w
 
 
 def fused_blend_fwd_plain(pay, tstart, cnt, grid_x: int,
@@ -114,46 +194,18 @@ def fused_blend_fwd_plain(pay, tstart, cnt, grid_x: int,
     a chunk holds at most ~chunk_elems pair-pixel values. The pair axis is
     not the innermost one: torch then scans it sequentially per pixel, so the
     products round as the kernel's T *= (1 - alpha) does."""
-    dev = pay.device
     n_tiles = tstart.shape[0]
-    out8 = torch.zeros((n_tiles, P, 8), dtype=torch.float32, device=dev)
-    cnt_host = cnt.cpu()
-    kmax = max(int(cnt_host.max()), 1) if n_tiles else 1
-    tc = max(1, chunk_elems // (P * kmax))
-    lpix = torch.arange(P, device=dev)
-    lx = (lpix % TILE).to(torch.float32)
-    ly = (lpix // TILE).to(torch.float32)
-    last = max(pay.shape[1] - 1, 0)
-    for t0 in range(0, n_tiles, tc):
-        t1 = min(t0 + tc, n_tiles)
-        k_len = int(cnt_host[t0:t1].max())
+    out8 = torch.zeros((n_tiles, P, 8), dtype=torch.float32, device=pay.device)
+    for t0, t1, k_len in _tile_chunks(cnt, chunk_elems):
         if k_len == 0:
             out8[t0:t1, :, 5] = 1.0
             continue
-        ids = torch.arange(t0, t1, device=dev)
-        k = torch.arange(k_len, device=dev)
-        valid = k[None, :] < cnt[t0:t1, None]  # [tc, K]
-        idx = torch.clamp(tstart[t0:t1, None].to(torch.int64) + k[None, :],
-                          max=last)
-        g = pay[:, idx]  # [NF, tc, K]
-        px = ((ids % grid_x) * TILE).to(torch.float32)[:, None] + lx  # [tc, P]
-        py = ((ids // grid_x) * TILE).to(torch.float32)[:, None] + ly
-        dx = g[0][..., None] - px[:, None, :]  # [tc, K, P]
-        dy = g[1][..., None] - py[:, None, :]
-        a, b, c = g[2][..., None], g[3][..., None], g[4][..., None]
-        power = -0.5 * (a * dx * dx + c * dy * dy) - b * dx * dy
-        alpha_raw = torch.clamp_max(
-            g[5][..., None] * torch.exp(torch.clamp_max(power, 0.0)), ALPHA_MAX
-        )
-        keep = valid[..., None] & (power <= POWER_TOL) & (alpha_raw >= ALPHA_EPS)
-        alpha = torch.where(keep, alpha_raw, 0.0)
-        cp = torch.cumprod(1.0 - alpha, dim=1)  # T after each pair
-        live = cp >= T_EPS
-        t_before = torch.cat([torch.ones_like(cp[:, :1]), cp[:, :-1]], dim=1)
-        w = torch.where(live, alpha * t_before, 0.0)
+        _, _, g, _, _, _, _, keep, cp, live, _, w = _chunk_fields(
+            pay, tstart, cnt, grid_x, t0, t1, k_len)
         out8[t0:t1, :, :NC] = torch.einsum("tkp,ctk->tpc", w, g[6:6 + NC])
         out8[t0:t1, :, 5] = torch.where(live, cp, 1.0).amin(dim=1)
-        pos = (k + 1).to(torch.float32)[None, :, None]
+        pos = torch.arange(1, k_len + 1, device=pay.device,
+                           dtype=torch.float32)[None, :, None]
         out8[t0:t1, :, 6] = torch.where(keep & live, pos, 0.0).amax(dim=1)
     return out8
 
@@ -175,17 +227,7 @@ def fused_blend_fwd(pay, tstart, cnt, grid_x: int):
         return fused_blend_fwd_plain(pay, tstart, cnt, grid_x)
     if pay.device.type != "cuda":
         raise ValueError(f"fused_blend_fwd: unsupported device {pay.device}")
-    n_tiles = tstart.shape[0]
-    if pay.dtype != torch.float32 or pay.dim() != 2 or pay.shape[0] != NF:
-        raise ValueError(f"pay must be float32 [{NF}, P], got "
-                         f"{pay.dtype} {tuple(pay.shape)}")
-    for name, x in (("tstart", tstart), ("cnt", cnt)):
-        if x.dtype != torch.int32 or x.shape != (n_tiles,):
-            raise ValueError(f"{name} must be int32 [{n_tiles}], got "
-                             f"{x.dtype} {tuple(x.shape)}")
-    for name, x in (("pay", pay), ("tstart", tstart), ("cnt", cnt)):
-        if x.device != pay.device or not x.is_contiguous():
-            raise ValueError(f"{name} must be contiguous on {pay.device}")
+    n_tiles = _check_blend_inputs("fused_blend_fwd", pay, tstart, cnt)
     from eogs2_tpu_torch.ops import cuda_build
 
     lib = cuda_build.load("fused_blend_fwd")
@@ -209,16 +251,131 @@ def fused_blend_fwd(pay, tstart, cnt, grid_x: int):
 fused_blend_fwd.launches = 0  # kernel launches on the card
 
 
+def fused_blend_bwd_plain(pay, tstart, cnt, out8, g_out8, grid_x: int,
+                          chunk_elems: int = 1 << 24):
+    """Plain PyTorch version of K2 (same function, same [NF, P] output).
+
+    Recomputes the forward per chunk of tiles as fused_blend_fwd_plain does,
+    then, per pair and pixel (front to back, cumsum over the pair axis):
+
+      fdot    = sum_c g_pix_c f_c,  total = sum_c acc_c g_pix_c
+      suffix  = total - (prefix of w fdot, this pair included)
+      g_alpha = fdot T_before - (suffix + final_T g_ft) / (1 - alpha)
+                (0 unless the pair is kept and live)
+      gG      = g_alpha op G,  G = exp(min(power, 0))
+
+    and sums over the tile's pixels: g_mx = -gG (a dx + b dy), g_my =
+    -gG (c dy + b dx), g_a = -gG dx^2 / 2, g_b = -gG dx dy, g_c = -gG dy^2 / 2,
+    g_op = g_alpha G, g_f = w g_pix. No derivative through the 0.99 clamp,
+    and the gradient flows through min(power, 0) as if it were power (JAX's
+    conventions, eogs2_tpu/ops/fused_raster.py:_bwd_kernel_col)."""
+    g_pay = torch.zeros_like(pay)
+    for t0, t1, k_len in _tile_chunks(cnt, chunk_elems):
+        if k_len == 0:
+            continue
+        idx, valid, g, dx, dy, G, alpha, keep, _, live, t_before, w = \
+            _chunk_fields(pay, tstart, cnt, grid_x, t0, t1, k_len)
+        o, go = out8[t0:t1], g_out8[t0:t1]  # [tc, P, 8]
+        g_pix = go[..., :NC]
+        total = (o[..., :NC] * g_pix).sum(-1)[:, None, :]  # [tc, 1, P]
+        tail = (o[..., 5] * go[..., 5])[:, None, :]
+        fdot = torch.einsum("ctk,tpc->tkp", g[6:6 + NC], g_pix)
+        suffix = total - torch.cumsum(w * fdot, dim=1)
+        g_alpha = fdot * t_before - (suffix + tail) / (1.0 - alpha)
+        g_alpha = torch.where(keep & live, g_alpha, 0.0)
+        gG = g_alpha * (g[5][..., None] * G)
+        a, b, c = g[2][..., None], g[3][..., None], g[4][..., None]
+        rows = torch.stack([
+            -(gG * (a * dx + b * dy)).sum(-1),
+            -(gG * (c * dy + b * dx)).sum(-1),
+            (-0.5 * gG * dx * dx).sum(-1),
+            (-gG * dx * dy).sum(-1),
+            (-0.5 * gG * dy * dy).sum(-1),
+            (g_alpha * G).sum(-1),
+        ] + list(torch.einsum("tkp,tpc->ctk", w, g_pix)))  # [NF, tc, K]
+        g_pay[:, idx[valid]] = rows[:, valid]
+    return g_pay
+
+
+def _check_blend_inputs(name, pay, tstart, cnt, *maps):
+    """Validate the kernels' inputs on the card; returns the tile count."""
+    n_tiles = tstart.shape[0]
+    if pay.dtype != torch.float32 or pay.dim() != 2 or pay.shape[0] != NF:
+        raise ValueError(f"pay must be float32 [{NF}, P], got "
+                         f"{pay.dtype} {tuple(pay.shape)}")
+    for arg, x in (("tstart", tstart), ("cnt", cnt)):
+        if x.dtype != torch.int32 or x.shape != (n_tiles,):
+            raise ValueError(f"{arg} must be int32 [{n_tiles}], got "
+                             f"{x.dtype} {tuple(x.shape)}")
+    for arg, x in maps:
+        if x.dtype != torch.float32 or x.shape != (n_tiles, P, 8):
+            raise ValueError(f"{arg} must be float32 [{n_tiles}, {P}, 8], "
+                             f"got {x.dtype} {tuple(x.shape)}")
+    for arg, x in (("pay", pay), ("tstart", tstart), ("cnt", cnt), *maps):
+        if x.device != pay.device or not x.is_contiguous():
+            raise ValueError(f"{name}: {arg} must be contiguous on "
+                             f"{pay.device}")
+    return n_tiles
+
+
+def fused_blend_bwd(pay, tstart, cnt, out8, g_out8, grid_x: int):
+    """K2: per sorted pair row, dL/d(mx, my, conic a, b, c, opacity,
+    f0..f4) -> g_pay [NF, P] float32 (rows no pixel reached are 0).
+
+    out8 is K1's output for the same inputs, g_out8 its cotangent (channels
+    0-4 the pre-background channels, 5 final_T; 6-7 ignored). CPU tensors go
+    to :func:`fused_blend_bwd_plain`; CUDA tensors launch the hand-written
+    kernel (csrc/fused_blend_bwd.cu, built at first use) or raise, never
+    falling back to the plain version on the card."""
+    if grid_x < 1 or tstart.shape[0] % grid_x:
+        raise ValueError(f"{tstart.shape[0]} tiles do not fill rows of "
+                         f"grid_x={grid_x}")
+    if pay.device.type == "cpu":
+        return fused_blend_bwd_plain(pay, tstart, cnt, out8, g_out8, grid_x)
+    if pay.device.type != "cuda":
+        raise ValueError(f"fused_blend_bwd: unsupported device {pay.device}")
+    n_tiles = _check_blend_inputs("fused_blend_bwd", pay, tstart, cnt,
+                                  ("out8", out8), ("g_out8", g_out8))
+    from eogs2_tpu_torch.ops import cuda_build
+
+    fn = cuda_build.load("fused_blend_bwd").eogs2_fused_blend_bwd
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
+                   ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+                   ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                   ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    g_pay = torch.empty_like(pay)
+    with torch.cuda.device(pay.device):
+        err = fn(pay.data_ptr(), pay.shape[1], tstart.data_ptr(),
+                 cnt.data_ptr(), n_tiles, grid_x, out8.data_ptr(),
+                 g_out8.data_ptr(), g_pay.data_ptr(),
+                 torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"fused_blend_bwd kernel launch failed: CUDA "
+                           f"error {err}")
+    fused_blend_bwd.launches += 1
+    return g_pay
+
+
+fused_blend_bwd.launches = 0  # kernel launches on the card
+
+
 class FusedBlend(torch.autograd.Function):
-    """Differentiable wrapper of K1; its backward is kernel K2."""
+    """Differentiable K1; its backward is kernel K2."""
 
     @staticmethod
     def forward(ctx, pay, tstart, cnt, grid_x):
-        return fused_blend_fwd(pay, tstart, cnt, grid_x)
+        out8 = fused_blend_fwd(pay, tstart, cnt, grid_x)
+        ctx.save_for_backward(pay, tstart, cnt, out8)
+        ctx.grid_x = grid_x
+        return out8
 
     @staticmethod
     def backward(ctx, g_out8):
-        raise NotImplementedError("K2 lands with the training slice")
+        pay, tstart, cnt, out8 = ctx.saved_tensors
+        g_pay = fused_blend_bwd(pay, tstart, cnt, out8, g_out8.contiguous(),
+                                ctx.grid_x)
+        return g_pay, None, None, None
 
 
 def rasterize_fused(prep: Preprocessed, features, width: int, height: int,

@@ -1,10 +1,16 @@
-"""Scene assembly: affine_models.json reader, uniform point init, splits.
+"""Scene assembly: affine_models.json reader, images, uniform point init,
+splits.
 
-Counterpart of ``eogs2_tpu/scene.py`` for camera-only loads; parity targets
-``dataset_affine.py`` (metadata -> cameras :331-396, uniform init :247-295,
-train/test split with the synthetic Nadir camera appended to test
-:305-328) and ``dataset_MS_affine.py`` (paired {pan, msi} metadata).
-Image loading and the GT rescalers arrive with training.
+Counterpart of ``eogs2_tpu/scene.py``; parity targets ``dataset_affine.py``
+(metadata -> cameras :331-396, uniform init :247-295, train/test split with
+the synthetic Nadir camera appended to test :305-328) and
+``dataset_MS_affine.py`` (paired {pan, msi} metadata).
+:func:`build_scene` assembles a SceneData from metadata and images already
+in memory; :func:`load_scene` reads them from a scene directory (imageio is
+imported only when an image is read) and calls it. Of the GT rescalers,
+the default ``clamper`` and ``identity`` are ported; the others arrive with
+the remaining recipes (ROADMAP Queue 1 item 9). PLY-based init is not
+ported (item 12).
 """
 
 from __future__ import annotations
@@ -87,24 +93,50 @@ def uniform_point_init(
     return xyz, rgb
 
 
-def load_scene(
-    path: str,
-    eval_split: bool = True,
+def _load_image(images_dir: str, name: str, need_rescale: bool):
+    """[C,H,W] float32 from images_dir/name, or None if it is missing."""
+    path = os.path.join(images_dir, name)
+    if not os.path.exists(path):
+        return None
+    import imageio.v2 as iio
+
+    img = np.asarray(iio.imread(path)).astype(np.float32)
+    if img.ndim == 2:
+        img = img[..., None]
+    if need_rescale:
+        img = img / 255.0
+    return img.transpose(2, 0, 1)
+
+
+def _rescaler(name):
+    if name in ("clamper", None, ""):
+        return lambda x: np.clip(x, 0.0, 1.0)
+    if name == "identity":
+        return lambda x: x
+    raise NotImplementedError(
+        f"rescaler {name!r} is not ported yet (ROADMAP Queue 1 item 9); "
+        f"use 'clamper' or 'identity'")
+
+
+def build_scene(
+    metadatas,
+    images_msi: Optional[Dict[str, np.ndarray]] = None,
+    images_pan: Optional[Dict[str, np.ndarray]] = None,
+    split=None,
     target_density: float = 0.13,
     load_msi: bool = True,
     load_pan: bool = True,
     seed: int = 0,
     scale_factor_z: float = 1.0,
+    rescaler_name: str = "clamper",
     device=None,
 ) -> SceneData:
-    """Load the cameras of a scene directory holding affine_models.json
-    (+ train/test.txt); views carry no images.
+    """SceneData from affine_models.json's content and images in memory.
 
-    Handles the single-modality list format and the MS {"pan", "msi"}
-    format of the reference's to_affine output."""
-    with open(os.path.join(path, "affine_models.json")) as f:
-        metadatas = json.load(f)
-
+    metadatas: the single-modality list, or the MS {"pan", "msi"} dict;
+    images_msi / images_pan: image file name -> [C,H,W] float32 (a missing
+    name leaves the view without an image); split: (train names, test
+    names) as in train.txt / test.txt, or None to train on every view."""
     if isinstance(metadatas, dict):  # MS format
         groups = {k: v for k, v in metadatas.items() if k in ("pan", "msi")}
     else:
@@ -119,23 +151,28 @@ def load_scene(
                 continue
             md = mds[i]
             model_md = md
+            images = images_pan if kind == "pan" else images_msi
+            img = None
+            if images and not md.get("virtual_camera", False) \
+                    and md["img"] != "Nadir":
+                img = images.get(md["img"])
             views.append(
                 ViewData(
                     name=md["img"].replace(".tif", ""),
                     image_type=kind,
                     camera=_camera_from_metadata(md, device),
-                    image=None,
+                    image=img,
                     is_virtual=md.get("virtual_camera", False),
                 )
             )
 
     # split: all-but-last by train.txt/test.txt, last (Nadir) -> test
     per_view = max(1, len(groups))
-    if eval_split and os.path.exists(os.path.join(path, "train.txt")):
-        with open(os.path.join(path, "train.txt")) as f:
-            train_names = {x.replace(".json", "").replace(".tif", "") for x in f.read().split()}
-        with open(os.path.join(path, "test.txt")) as f:
-            test_names = {x.replace(".json", "").replace(".tif", "") for x in f.read().split()}
+    if split is not None:
+        def names(xs):
+            return {x.replace(".json", "").replace(".tif", "") for x in xs}
+
+        train_names, test_names = names(split[0]), names(split[1])
         train_views, test_views = [], []
         body, tail = views[: len(views) - per_view], views[len(views) - per_view :]
         for v in body:
@@ -150,6 +187,12 @@ def load_scene(
         train_views, test_views = views, []
 
     train_views[0].is_reference = True
+
+    # GT normalization at load (utils/rescaler/rescaler.py:149-172)
+    rescale = _rescaler(rescaler_name)
+    for v in train_views + test_views:
+        if v.image is not None:
+            v.image = np.asarray(rescale(v.image), np.float32)
 
     model = model_md["model"]
     max_world = list(model["max_world"])
@@ -169,4 +212,57 @@ def load_scene(
         scene_n=int(model.get("n", 17)),
         scene_l=str(model.get("l", "R")),
         cameras_extent=float(radius),
+    )
+
+
+def load_scene(
+    path: str,
+    images_msi_path: Optional[str] = None,
+    images_pan_path: Optional[str] = None,
+    eval_split: bool = True,
+    need_rescale: bool = False,
+    target_density: float = 0.13,
+    load_msi: bool = True,
+    load_pan: bool = True,
+    seed: int = 0,
+    scale_factor_z: float = 1.0,
+    rescaler_name: str = "clamper",
+    device=None,
+) -> SceneData:
+    """Load a scene directory holding affine_models.json (+ train/test.txt),
+    with the images of images_msi_path / images_pan_path when given.
+
+    Handles the single-modality list format and the MS {"pan", "msi"}
+    format of the reference's to_affine output."""
+    with open(os.path.join(path, "affine_models.json")) as f:
+        metadatas = json.load(f)
+    groups = (metadatas if isinstance(metadatas, dict)
+              else {"msi" if load_msi else "pan": metadatas})
+
+    def read(images_dir, kind):
+        if not images_dir or kind not in groups:
+            return None
+        out = {}
+        for md in groups[kind]:
+            if md.get("virtual_camera", False) or md["img"] == "Nadir":
+                continue
+            img = _load_image(images_dir, md["img"], need_rescale)
+            if img is not None:
+                out[md["img"]] = img
+        return out
+
+    split = None
+    if eval_split and os.path.exists(os.path.join(path, "train.txt")):
+        with open(os.path.join(path, "train.txt")) as f:
+            train_names = f.read().split()
+        with open(os.path.join(path, "test.txt")) as f:
+            test_names = f.read().split()
+        split = (train_names, test_names)
+    return build_scene(
+        metadatas,
+        read(images_msi_path, "msi") if load_msi else None,
+        read(images_pan_path, "pan") if load_pan else None,
+        split=split, target_density=target_density, load_msi=load_msi,
+        load_pan=load_pan, seed=seed, scale_factor_z=scale_factor_z,
+        rescaler_name=rescaler_name, device=device,
     )

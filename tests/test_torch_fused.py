@@ -1,11 +1,14 @@
 """Fused-route parity: eogs2_tpu_torch.rasterize(binning_mode="fused") on
-the CPU, where the K1 wrapper runs its plain PyTorch version, against the
-JAX fused route (Pallas in interpret mode), the port's own dense oracle and
-the frozen float64 golden scene.
+the CPU, where the K1 and K2 wrappers run their plain PyTorch versions,
+against the JAX fused route (Pallas in interpret mode), the port's own dense
+oracle and the frozen float64 golden scene.
 
 Tolerances: image atol 5e-5 / rtol 1e-4 against JAX and the oracle (the
 blend's products and sums round in another order); the golden checks use
 tests/test_golden.py's own tolerances (pairs at the 1/255 and T_EPS edges).
+Gradients of every input, against JAX and the golden: max-normalised
+relative error < 2e-4 (test_golden.py's gradient tolerance; 2e-3 with
+antialiasing, as there).
 """
 
 import dataclasses
@@ -16,8 +19,12 @@ import numpy as np
 import pytest
 import torch
 
+import jax
+
 from eogs2_tpu.rasterizer import rasterize as jrasterize
-from eogs2_tpu_torch.ops.fused_raster import (FusedBlend, depth_key,
+from eogs2_tpu_torch.ops.fused_raster import (_GatherPairs, depth_key,
+                                              fused_blend_bwd,
+                                              fused_blend_bwd_plain,
                                               fused_blend_fwd,
                                               fused_blend_fwd_plain,
                                               sort_pairs)
@@ -202,20 +209,145 @@ def test_unported_modes_raise():
             rasterize(*args, 32, 32, RasterizeConfig(binning_mode=mode))
 
 
-def test_backward_waits_for_k2():
-    args = _t(make_scene(n=64, seed=1))
-    args[4].requires_grad_(True)
-    out = rasterize(*args, 32, 32, _cfg())
-    with pytest.raises(NotImplementedError, match="K2"):
-        out.image.sum().backward()
-    assert FusedBlend.backward is not None
+GRAD_NAMES = ("means", "scales", "quats", "opacities", "features", "affine",
+              "mean2d_ndc")
+
+
+def _rel_err(got, want):
+    want = np.asarray(want)
+    return float(np.abs(np.asarray(got) - want).max()
+                 / (np.abs(want).max() + 1e-30))
+
+
+def _port_grads(args, ct, w, h, cfg):
+    """Gradients of sum(image * ct) w.r.t. the 6 inputs and a zero NDC
+    offset, through the port's fused route."""
+    leaves = [torch.tensor(np.array(a), requires_grad=True)
+              for a in args[:6]]
+    off = torch.zeros((leaves[0].shape[0], 2), requires_grad=True)
+    out = rasterize(*leaves, torch.tensor(np.array(args[6])), w, h, cfg,
+                    mean2d_ndc_offset=off)
+    (out.image * torch.from_numpy(np.asarray(ct))).sum().backward()
+    return [x.grad.numpy() for x in leaves + [off]]
+
+
+@pytest.mark.parametrize("kw", [
+    {},
+    {"tile_cull": True},
+    {"eogs_features": True},
+    {"eogs_features": True, "tile_cull": True},
+])
+def test_fused_grads_match_jax(kw):
+    """Every input's gradient, features included: with eogs_features the
+    altitude column (3) carries the altitude gradient, as in JAX, and the
+    constant column (4) gets none."""
+    args = make_scene(n=512, seed=7)
+    ct = np.random.RandomState(0).normal(size=(5, H, W)).astype(np.float32)
+    cfg = dataclasses.replace(CFG_F, **kw)
+
+    def loss(*xs):
+        out = jrasterize(*xs[:6], args[6], W, H, cfg,
+                         mean2d_ndc_offset=xs[6])
+        return jnp.sum(out.image * ct)
+
+    want = jax.grad(loss, argnums=tuple(range(7)))(
+        *args[:6], jnp.zeros((512, 2), jnp.float32))
+    got = _port_grads(args, ct, W, H, _cfg(**kw))
+    for name, g, j in zip(GRAD_NAMES, got, want):
+        assert np.abs(np.asarray(j)).max() > 0, name
+        assert _rel_err(g, j) < 2e-4, name
+    assert _rel_err(got[4][:, 3], np.asarray(want[4])[:, 3]) < 2e-4
+    if kw.get("eogs_features"):
+        assert (got[4][:, 4] == 0).all()
+
+
+def test_altitude_row_carries_gradient():
+    """eogs layout: the sorted payload's altitude row is features[:, 3]
+    itself, so a loss on it reaches that column (the sort key stays
+    detached; the constant row gets no gradient)."""
+    args = _t(make_scene(n=256, seed=3))
+    feats = args[4].clone().requires_grad_(True)
+    cov2d = compute_cov2d_direct(args[1], args[2], args[5], W, H)
+    prep = preprocess_gaussians(args[0], None, args[3], args[5], W, H,
+                                cov2d=cov2d)
+    sp = sort_pairs(prep, feats, W, H, eogs=True)
+    torch.testing.assert_close(sp.pay[9], feats[sp.gid, 3], rtol=0, atol=0)
+    sp.pay[9].sum().backward()
+    want = torch.bincount(sp.gid, minlength=256).float()
+    torch.testing.assert_close(feats.grad[:, 3], want, rtol=0, atol=0)
+    assert (feats.grad[:, [0, 1, 2, 4]] == 0).all()
+
+
+@pytest.mark.parametrize("tag,aa,tol", [("noaa", False, 2e-4),
+                                        ("aa", True, 2e-3)])
+def test_golden_grads(tag, aa, tol):
+    g = np.load(GOLDEN)
+    w, h = int(g["width"]), int(g["height"])
+    args = [g[k] for k in ("means", "scales", "quats", "opac", "feat",
+                           "affine", "bg")]
+    got = _port_grads(args, g["ct"], w, h, _cfg(antialiasing=aa))
+    for name, grad in zip(GRAD_NAMES, got):
+        assert _rel_err(grad, g[f"{tag}_g_{name}"]) < tol, name
+
+
+def test_gather_pairs_backward_is_a_segment_sum():
+    """The deterministic per-pair -> per-Gaussian reduction equals the
+    scatter-add that autograd of index_select would do."""
+    rng = np.random.RandomState(0)
+    lengths = torch.from_numpy(rng.randint(0, 5, 40))
+    gid = torch.repeat_interleave(torch.arange(40), lengths)  # Gaussian-major
+    perm = torch.from_numpy(rng.permutation(gid.shape[0]))
+    cols = torch.randn(11, 40, dtype=torch.float64, requires_grad=True)
+    pay = _GatherPairs.apply(cols, gid[perm], perm, lengths)
+    torch.testing.assert_close(pay, cols[:, gid[perm]], rtol=0, atol=0)
+    g_pay = torch.randn_like(pay)
+    pay.backward(g_pay)
+    want = torch.zeros(11, 40, dtype=torch.float64).index_add_(
+        1, gid[perm], g_pay)
+    torch.testing.assert_close(cols.grad, want)
+
+
+def test_plain_bwd_chunking_is_invisible():
+    """fused_blend_bwd_plain's tile chunking only bounds memory; rows no
+    pixel reached are zero."""
+    args = _t(make_scene(n=512, seed=7))
+    cov2d = compute_cov2d_direct(args[1], args[2], args[5], W, H)
+    prep = preprocess_gaussians(args[0], None, args[3], args[5], W, H,
+                                cov2d=cov2d)
+    sp = sort_pairs(prep, args[4], W, H)
+    out8 = fused_blend_fwd(sp.pay, sp.tstart, sp.cnt, W // 16)
+    g_out8 = torch.from_numpy(
+        np.random.RandomState(1).normal(size=out8.shape).astype(np.float32))
+    whole = fused_blend_bwd(sp.pay, sp.tstart, sp.cnt, out8, g_out8, W // 16)
+    tiny = fused_blend_bwd_plain(sp.pay, sp.tstart, sp.cnt, out8, g_out8,
+                                 W // 16, chunk_elems=1)
+    torch.testing.assert_close(whole, tiny, rtol=0, atol=0)
+    assert torch.isfinite(whole).all()
+    # g_out8's channels 6-7 are ignored
+    g2 = g_out8.clone()
+    g2[..., 6:] = 0
+    torch.testing.assert_close(
+        fused_blend_bwd(sp.pay, sp.tstart, sp.cnt, out8, g2, W // 16), whole,
+        rtol=0, atol=0)
+    # a pair past every pixel's last composite has zero gradient
+    pos = torch.arange(sp.pay.shape[1]) - sp.tstart.long().repeat_interleave(
+        sp.cnt.long())
+    last = out8[..., 6].amax(1).long().repeat_interleave(sp.cnt.long())
+    assert (pos >= last).any()
+    assert (whole[:, pos >= last] == 0).all()
 
 
 def test_wrapper_takes_only_cpu_or_cuda():
     pay = torch.zeros((11, 4), device="meta")
     idx = torch.zeros((1,), dtype=torch.int32, device="meta")
+    out8 = torch.zeros((1, 256, 8), device="meta")
     with pytest.raises(ValueError, match="device"):
         fused_blend_fwd(pay, idx, idx, 1)
+    with pytest.raises(ValueError, match="device"):
+        fused_blend_bwd(pay, idx, idx, out8, out8, 1)
     idx = torch.zeros((3,), dtype=torch.int32)
+    out8 = torch.zeros((3, 256, 8))
     with pytest.raises(ValueError, match="grid_x"):
         fused_blend_fwd(torch.zeros((11, 4)), idx, idx, 2)
+    with pytest.raises(ValueError, match="grid_x"):
+        fused_blend_bwd(torch.zeros((11, 4)), idx, idx, out8, out8, 2)

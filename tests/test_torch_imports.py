@@ -42,8 +42,9 @@ def test_forbidden_matcher_respects_the_shared_prefix():
 
 def test_importing_every_module_loads_no_jax():
     mods = _modules()
-    assert "eogs2_tpu_torch.ops.fused_raster" in mods
-    assert "eogs2_tpu_torch.pipeline" in mods
+    for m in ("ops.fused_raster", "pipeline", "train", "losses", "config",
+              "densify", "ops.ssim", "ops.knn", "data.synthetic"):
+        assert "eogs2_tpu_torch." + m in mods, m
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"
@@ -87,9 +88,13 @@ def test_precision_is_pinned_to_float32():
 
 
 def test_default_device_raises_without_cuda(monkeypatch):
+    import numpy as np
+
     from eogs2_tpu_torch.cameras import camera_from_reference_convention
-    from eogs2_tpu_torch.model import GaussianModel
+    from eogs2_tpu_torch.config import baseogs
+    from eogs2_tpu_torch.model import GaussianModel, init_from_points
     from eogs2_tpu_torch.shading import init_shading_params
+    from eogs2_tpu_torch.train import Trainer
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
@@ -101,6 +106,11 @@ def test_default_device_raises_without_cuda(monkeypatch):
         init_shading_params(1)
     with pytest.raises(RuntimeError, match="CUDA"):
         GaussianModel.from_numpy({}, {})
+    with pytest.raises(RuntimeError, match="CUDA"):
+        init_from_points(np.zeros((8, 3), np.float32),
+                         np.ones((8, 3), np.float32), 8)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        Trainer(baseogs(), scene=None).setup()
     # an explicit device is honoured
     cam = camera_from_reference_convention(
         [[1, 0, 0], [0, 1, 0], [0, 0, 1]], [0, 0, 0], device="cpu")

@@ -11,7 +11,8 @@ phase prints one JSON line; any failure raises, so the exit code is non-zero
 and the final ``{"ok": true, ...}`` line is never printed. Without a CUDA
 device it exits with code 1 before doing anything.
 
-Phases:
+Phases (the fused route's, 1-6, run first, in the order they had before
+the dense routes were added, so that their times stay comparable):
   1. card name and power limit (nvidia-smi), kernel build time;
   2. K1 (csrc/fused_blend_fwd.cu) against fused_blend_fwd_plain on three
      256x256 scenes of 20k seeded Gaussians — altitudes of both signs, the
@@ -46,11 +47,39 @@ Phases:
      after; one profiled step; K1 and K2 at the main render's exact inputs
      of a step (captured from the step), with their times, the plain
      versions' and their bounds;
-  6. the kernel table line, then the last line.
+  6. K3 (the row-payload load of csrc/fused_blend_fwd.cu and
+     fused_blend_bwd.cu) on the three 256x256 scenes: out8 equal to K1's
+     and g_pay equal to K2's transposed, bit for bit, and within the
+     tolerances above of the plain versions; then at the train render's
+     captured inputs (times, bound) and one training step with
+     payload_col=False, which launches K3 and not K1/K2;
+  7. K4 (csrc/blend_tiles_fwd.cu, blend_tiles_bwd.cu) against its plain
+     versions on packed tiles of three seeds with random masks, K 256 and
+     1024: channels 0-4 atol 2e-4, final_t 2e-5, n_contrib exact; the
+     backward per row <= 2e-4 of the row's largest value and bitwise
+     deterministic; and one case whose masks end early, as a render's do;
+  8. the CLI's fast route (sorted binning, K4) in training, on the scene of
+     phase 5: capacities bucketed (RasterizeConfig.bucketed, the JAX
+     Trainer's rule) from one untimed step's demand, 2 warm-up
+     and 10 timed steps, 3 K4 forward and 3 K4 backward launches per step
+     and none of K1/K2/K3, no render clipped, every metric finite, every
+     leaf moved, peak memory; one profiled step; K4 at the main render's
+     captured inputs (times, plain times, bounds);
+  9. the serving path on gather + use_pallas at 1,000,000 Gaussians and
+     1024x1024: 2 K4 launches per render_view_full and 1 per nadir_dsm,
+     median of 3 runs after one warm-up, the serve checks of phase 3; K4
+     forward against its plain version at each of the three renders' exact
+     tables (captured from one more run), at the tolerances of phase 7;
+ 10. the safe route (gather, the plain dense blend) in one training step at
+     256x256 with about 20k Gaussians, on the card and on the CPU from the
+     same state and draws: loss terms within rel 1e-4, every gradient
+     within 2e-4 of its largest value; it launches no hand-written kernel;
+ 11. the kernel table line, then the last line.
 """
 
 from __future__ import annotations
 
+import gc
 import json
 import os
 import statistics
@@ -398,14 +427,7 @@ def phase_k1_small(device):
                                             reference_rasterize)
 
     w = 256
-    scenes = {
-        "both_signs": (random_scene(20000, w, seed=1), False),
-        "both_signs_tile_cull": (random_scene(20000, w, seed=1), True),
-        "dense_saturating": (random_scene(20000, w, seed=2,
-                                          scale_px=(2.0, 6.0),
-                                          opac=(0.5, 0.99)), True),
-    }
-    for name, (arrs, cull) in scenes.items():
+    for name, (arrs, cull) in small_scenes(20000, w).items():
         t = [torch.as_tensor(a, device=device) for a in arrs]
         sp = sorted_inputs(*t[:6], w, w, tile_cull=cull)
         rep, _ = compare_k1(sp, w // 16)
@@ -465,6 +487,48 @@ def profile_run(fn, top=12):
                            for k, ms, c in ops[:top]])
 
 
+def median_ms(fn, runs=3):
+    """Median host-clock ms of `runs` calls, each ending in a synchronize."""
+    import torch
+
+    times = []
+    for _ in range(runs):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t) * 1e3)
+    return statistics.median(times), times
+
+
+def check_serve_outputs(out, nout, dsm, scene, width):
+    """The serving gates (PERF.md section 2): outputs finite, acc_opacity in
+    [0, 1], the render's shape, >= 90% of DSM cells finite and inside the
+    altitude bounds. Returns the DSM's statistics."""
+    for key, arr in list(out.items()) + list(nout.items()):
+        if arr is not None and not np.isfinite(arr).all():
+            raise AssertionError(f"non-finite values in {key}")
+    acc_tol = 1e-5  # sum of alpha*T over pairs equals 1 - final_T only to f32
+    for o in (out, nout):
+        acc = o["acc_opacity"]
+        if acc.min() < -acc_tol or acc.max() > 1 + acc_tol:
+            raise AssertionError(f"acc_opacity outside [0,1]: "
+                                 f"{acc.min()} {acc.max()}")
+    if out["raw_render"].shape != (3, width, width):
+        raise AssertionError(f"raw_render shape {out['raw_render'].shape}")
+    cells = dsm[..., 0]
+    finite_share = float(np.isfinite(cells).mean())
+    lo, hi = (float(b) * scene.scene_scale + float(scene.scene_shift[2])
+              for b in scene.test_views[0].camera.altitude_bounds)
+    h = cells[np.isfinite(cells)]
+    if finite_share < 0.9 or h.min() < lo - 1e-3 or h.max() > hi + 1e-3:
+        raise AssertionError(f"DSM check failed: finite {finite_share}, "
+                             f"heights [{h.min()}, {h.max()}] vs [{lo}, {hi}]")
+    return dict(dsm_shape=list(cells.shape), dsm_finite_share=finite_share,
+                dsm_height_range=[float(h.min()), float(h.max())],
+                dsm_height_bounds=[lo, hi])
+
+
 def phase_serve(device, n=1_000_000, width=1024):
     import torch
 
@@ -502,42 +566,12 @@ def phase_serve(device, n=1_000_000, width=1024):
         raise AssertionError(f"K1 launches: render_view_full {launches_rvf} "
                              f"(want 2), nadir_dsm {launches_nadir} (want 1)")
 
-    def median_ms(fn):
-        times = []
-        for _ in range(3):
-            torch.cuda.synchronize()
-            t = time.perf_counter()
-            fn()
-            torch.cuda.synchronize()
-            times.append((time.perf_counter() - t) * 1e3)
-        return statistics.median(times), times
-
     rvf_ms, rvf_all = median_ms(rvf)
     nadir_ms, nadir_all = median_ms(nadir)
     for name, fn in (("render_view_full", rvf), ("nadir_dsm", nadir)):
         log(dict(phase="serve_profile", entry_point=name, **profile_run(fn),
                  **CARD))
 
-    # ---- output checks --------------------------------------------------
-    for key, arr in list(out.items()) + list(nout.items()):
-        if arr is not None and not np.isfinite(arr).all():
-            raise AssertionError(f"non-finite values in {key}")
-    acc_tol = 1e-5  # sum of alpha*T over pairs equals 1 - final_T only to f32
-    for o in (out, nout):
-        acc = o["acc_opacity"]
-        if acc.min() < -acc_tol or acc.max() > 1 + acc_tol:
-            raise AssertionError(f"acc_opacity outside [0,1]: "
-                                 f"{acc.min()} {acc.max()}")
-    if out["raw_render"].shape != (3, width, width):
-        raise AssertionError(f"raw_render shape {out['raw_render'].shape}")
-    cells = dsm[..., 0]
-    finite_share = float(np.isfinite(cells).mean())
-    lo, hi = (float(b) * scene.scene_scale + float(scene.scene_shift[2])
-              for b in scene.test_views[0].camera.altitude_bounds)
-    h = cells[np.isfinite(cells)]
-    if finite_share < 0.9 or h.min() < lo - 1e-3 or h.max() > hi + 1e-3:
-        raise AssertionError(f"DSM check failed: finite {finite_share}, "
-                             f"heights [{h.min()}, {h.max()}] vs [{lo}, {hi}]")
     log(dict(phase="serve", gaussians=n, width=width, height=width,
              sun_width=2 * width, config="fused, eogs_features",
              setup_s=setup_s,
@@ -545,9 +579,7 @@ def phase_serve(device, n=1_000_000, width=1024):
              nadir_dsm_ms=nadir_ms, nadir_dsm_runs_ms=nadir_all,
              peak_mem_gib=peak_gib, k1_launches_render_view_full=launches_rvf,
              k1_launches_nadir_dsm=launches_nadir,
-             dsm_shape=list(cells.shape), dsm_finite_share=finite_share,
-             dsm_height_range=[float(h.min()), float(h.max())],
-             dsm_height_bounds=[lo, hi], **CARD))
+             **check_serve_outputs(out, nout, dsm, scene, width), **CARD))
 
     # ---- K1 at the three renders' exact inputs --------------------------
     @torch.no_grad()
@@ -577,20 +609,26 @@ def phase_serve(device, n=1_000_000, width=1024):
     return per_render, launches_rvf + launches_nadir
 
 
+def small_scenes(n, w):
+    """The three seeded scenes of the small kernel checks: altitudes of both
+    signs, the same with tile_cull, and a dense scene whose pixels saturate
+    (the early exit runs): name -> (arrays, tile_cull)."""
+    return {
+        "both_signs": (random_scene(n, w, seed=1), False),
+        "both_signs_tile_cull": (random_scene(n, w, seed=1), True),
+        "dense_saturating": (random_scene(n, w, seed=2, scale_px=(2.0, 6.0),
+                                          opac=(0.5, 0.99)), True),
+    }
+
+
 def phase_k2_small(device, w=256, n=20000):
     import torch
 
     from eogs2_tpu_torch.ops.fused_raster import fused_blend_fwd
     from eogs2_tpu_torch.rasterizer import RasterizeConfig, rasterize
 
-    scenes = {
-        "both_signs": (random_scene(n, w, seed=1), False),
-        "both_signs_tile_cull": (random_scene(n, w, seed=1), True),
-        "dense_saturating": (random_scene(n, w, seed=2, scale_px=(2.0, 6.0),
-                                          opac=(0.5, 0.99)), True),
-    }
     errs = []
-    for name, (arrs, cull) in scenes.items():
+    for name, (arrs, cull) in small_scenes(n, w).items():
         t = [torch.as_tensor(a, device=device) for a in arrs]
         sp = sorted_inputs(*t[:6], w, w, tile_cull=cull)
         out8 = fused_blend_fwd(sp.pay, sp.tstart, sp.cnt, w // 16)
@@ -641,9 +679,9 @@ class capture_blend_calls:
 
         class Recording(orig):
             @staticmethod
-            def forward(ctx, pay, tstart, cnt, grid_x):
+            def forward(ctx, pay, tstart, cnt, grid_x, rows=False):
                 cap.fwd_pays.append(pay.detach())
-                return orig.forward(ctx, pay, tstart, cnt, grid_x)
+                return orig.forward(ctx, pay, tstart, cnt, grid_x, rows)
 
             @staticmethod
             def backward(ctx, g_out8):
@@ -661,13 +699,39 @@ class capture_blend_calls:
         self.fr.FusedBlend = self.orig
 
 
-def phase_train(device, width=1024, scale=142.0, n_views=7, hf_res=768,
-                n_buildings=24, warmup=2, timed=10):
-    import torch
-
-    from eogs2_tpu_torch.config import baseogs
+def train_scene(device, width=1024, scale=142.0, n_views=7, hf_res=768,
+                n_buildings=24):
+    """The synthetic scene of scripts/train_scale.py, built once in memory
+    and shared by the training phases: (scene, host seconds)."""
     from eogs2_tpu_torch.data.synthetic import (make_scene_arrays,
                                                 scene_from_arrays)
+
+    t0 = time.perf_counter()
+    arrays = make_scene_arrays(n_views=n_views, width=width, height=width,
+                               hf_res=hf_res, n_buildings=n_buildings,
+                               seed=11, scale=scale)
+    scene = scene_from_arrays(arrays, device=device)
+    scene_s = time.perf_counter() - t0
+    log(dict(phase="train_scene", init_gaussians=len(scene.init_xyz),
+             train_views=len(scene.train_views), width=width, scale=scale,
+             host_s=scene_s, **CARD))
+    return scene, scene_s
+
+
+def train_recipe(iterations):
+    """baseogs with the sun and random camera on from iteration 1, so every
+    step is the full three-render step."""
+    from eogs2_tpu_torch.config import baseogs
+
+    cfg = baseogs(iterations=iterations)
+    cfg.optimization.iterstart_shadowmapping = 0
+    cfg.optimization.iterstart_L_new_resample = 0
+    return cfg
+
+
+def phase_train(device, scene, scene_s, width=1024, warmup=2, timed=10):
+    import torch
+
     from eogs2_tpu_torch.ops.fused_raster import (SortedPairs,
                                                   fused_blend_bwd,
                                                   fused_blend_bwd_plain,
@@ -677,24 +741,13 @@ def phase_train(device, width=1024, scale=142.0, n_views=7, hf_res=768,
     from eogs2_tpu_torch.rasterizer import RasterizeConfig
     from eogs2_tpu_torch.train import Trainer, mean_metrics
 
-    t0 = time.perf_counter()
-    arrays = make_scene_arrays(n_views=n_views, width=width, height=width,
-                               hf_res=hf_res, n_buildings=n_buildings,
-                               seed=11, scale=scale)
-    scene = scene_from_arrays(arrays, device=device)
-    scene_s = time.perf_counter() - t0
     n_init = len(scene.init_xyz)
-    log(dict(phase="train_scene", init_gaussians=n_init,
-             train_views=len(scene.train_views), width=width, scale=scale,
-             host_s=scene_s, **CARD))
     t0 = time.perf_counter()
     mean_knn_dist2(torch.tensor(scene.init_xyz, device=device))
     torch.cuda.synchronize()
     knn_s = time.perf_counter() - t0
 
-    cfg = baseogs(iterations=warmup + timed)
-    cfg.optimization.iterstart_shadowmapping = 0
-    cfg.optimization.iterstart_L_new_resample = 0
+    cfg = train_recipe(warmup + timed)
     rcfg = RasterizeConfig(binning_mode="fused", tile_cull=True)
     t0 = time.perf_counter()
     tr = Trainer(cfg, scene, rcfg, device=device).setup()
@@ -767,7 +820,733 @@ def phase_train(device, width=1024, scale=142.0, n_views=7, hf_res=768,
     log(dict(phase="k2_at_train_shape", render="main", width=width,
              height=width, max_tile_count=int(cnt.max()), **rep,
              k1_at_same_render=k1, **CARD))
-    return rep, k1_launches, k2_launches
+    captured = (pay, tstart, cnt, out8, g_out8, gx)
+    return rep, k1, k1_launches, k2_launches, captured, tr
+
+
+# ----------------------------------------------------------------------------
+# K3: the fused route's row payload
+# ----------------------------------------------------------------------------
+
+
+def rows_of(pay):
+    """Column payload [11, P] -> the row payload [P, 16] K3 reads."""
+    import torch
+
+    from eogs2_tpu_torch.ops.fused_raster import NF, NFR
+
+    return torch.nn.functional.pad(pay.t(), (0, NFR - NF)).contiguous()
+
+
+def compare_k3(sp, grid_x, g_out8):
+    """K3 forward and backward against K1 and K2 (bit for bit) and against
+    the plain versions (K1's and K2's on the columns) on the same inputs."""
+    import torch
+
+    from eogs2_tpu_torch.ops.fused_raster import (NF, fused_blend_bwd,
+                                                  fused_blend_bwd_rows,
+                                                  fused_blend_fwd,
+                                                  fused_blend_fwd_plain,
+                                                  fused_blend_fwd_rows)
+
+    rows = rows_of(sp.pay)
+    out8 = fused_blend_fwd(sp.pay, sp.tstart, sp.cnt, grid_x)
+    out8_rows = fused_blend_fwd_rows(rows, sp.tstart, sp.cnt, grid_x)
+    plain = fused_blend_fwd_plain(sp.pay, sp.tstart, sp.cnt, grid_x)
+    g_col = fused_blend_bwd(sp.pay, sp.tstart, sp.cnt, out8, g_out8, grid_x)
+    g_rows = fused_blend_bwd_rows(rows, sp.tstart, sp.cnt, out8, g_out8,
+                                  grid_x)
+    torch.cuda.synchronize()
+    rep = dict(
+        pairs=int(sp.pay.shape[1]),
+        fwd_bitwise_equal_k1=bool(torch.equal(out8_rows, out8)),
+        bwd_bitwise_equal_k2=bool(torch.equal(g_rows[:, :NF].t(), g_col)
+                                  and (g_rows[:, NF:] == 0).all()),
+        max_abs_err_ch0_4=float((out8_rows[..., :5] - plain[..., :5])
+                                .abs().max()),
+        max_abs_err_final_t=float((out8_rows[..., 5] - plain[..., 5])
+                                  .abs().max()))
+    if not (rep["fwd_bitwise_equal_k1"] and rep["bwd_bitwise_equal_k2"]
+            and rep["max_abs_err_ch0_4"] <= ATOL_CH
+            and rep["max_abs_err_final_t"] <= ATOL_T):
+        raise AssertionError(f"K3 disagrees with K1/K2: {rep}")
+    return rep, rows
+
+
+def phase_k3_small(device, w=256, n=20000):
+    """K3 against K1/K2 (bit for bit, K2's bits being held against its
+    plain version in phase_k2_small) and against K1's plain version."""
+    import torch
+
+    from eogs2_tpu_torch.ops.fused_raster import fused_blend_fwd
+
+    errs = []
+    for name, (arrs, cull) in small_scenes(n, w).items():
+        t = [torch.as_tensor(a, device=device) for a in arrs]
+        sp = sorted_inputs(*t[:6], w, w, tile_cull=cull)
+        out8 = fused_blend_fwd(sp.pay, sp.tstart, sp.cnt, w // 16)
+        gen = torch.Generator(device=device).manual_seed(0)
+        g_out8 = torch.randn(out8.shape, generator=gen, device=device)
+        rep, _ = compare_k3(sp, w // 16, g_out8)
+        errs.append(max(rep["max_abs_err_ch0_4"], rep["max_abs_err_final_t"]))
+        log(dict(phase="k3_vs_k1_k2", scene=name, width=w, height=w,
+                 tile_cull=cull, **rep, **CARD))
+    return max(errs)
+
+
+def k3_bound(sp, grid_x, out8):
+    """K1's and K2's bounds with the row payload's bytes: a pair row is 64 B
+    (its 44 B of fields lie in two 32-byte sectors of one row)."""
+    fwd, bwd = k1_bound(sp, grid_x), k2_bound(sp, grid_x, out8)
+    for b, pairs_read, pairs_written in ((fwd, fwd["pairs_read"], 0),
+                                         (bwd, bwd["pairs_read"],
+                                          int(sp.pay.shape[1]))):
+        extra = (K3_BYTES_PER_PAIR - K1_BYTES_PER_PAIR) * (pairs_read
+                                                           + pairs_written)
+        b["bytes"] += extra
+        t_bytes = b["bytes"] / H100_BYTES_PER_S * 1e3
+        t_ops = b["ops"] / H100_FP32_FLOPS * 1e3
+        b.update(bound_ms=max(t_bytes, t_ops),
+                 bound_by="bytes" if t_bytes >= t_ops else "operations")
+    return fwd, bwd
+
+
+K3_BYTES_PER_PAIR = 64  # one row: 11 fields and 5 zeros
+
+
+def phase_k3_at_train_shape(device, captured, tr, k1, k2):
+    """K3 at the train render's captured K1/K2 inputs, then one training
+    step with payload_col=False (fused route on the row payload)."""
+    import dataclasses
+
+    import torch
+
+    from eogs2_tpu_torch.ops.fused_raster import (SortedPairs, fused_blend_bwd,
+                                                  fused_blend_bwd_rows,
+                                                  fused_blend_fwd,
+                                                  fused_blend_fwd_rows)
+
+    pay, tstart, cnt, out8, g_out8, gx = captured
+    sp = SortedPairs(pay, tstart, cnt, None)
+    rep, rows = compare_k3(sp, gx, g_out8)
+    fwd_b, bwd_b = k3_bound(sp, gx, out8)
+    fwd = dict(ms=time_cuda(
+        lambda: fused_blend_fwd_rows(rows, tstart, cnt, gx), 10),
+        k1_ms_same_call=time_cuda(
+            lambda: fused_blend_fwd(pay, tstart, cnt, gx), 10),
+        plain_ms=k1["plain_ms"], **fwd_b)
+    bwd = dict(ms=time_cuda(
+        lambda: fused_blend_bwd_rows(rows, tstart, cnt, out8, g_out8, gx), 10),
+        k2_ms_same_call=time_cuda(
+            lambda: fused_blend_bwd(pay, tstart, cnt, out8, g_out8, gx), 10),
+        plain_ms=k2["plain_ms"], **bwd_b)
+    log(dict(phase="k3_at_train_shape", render="main", **rep, fwd=fwd,
+             bwd=bwd, **CARD))
+    del rows
+
+    # the fused route on the row payload: one step launches K3, not K1/K2
+    tr.set_raster_cfg(dataclasses.replace(tr.raster_cfg, payload_col=False))
+    for f in (fused_blend_fwd, fused_blend_bwd, fused_blend_fwd_rows,
+              fused_blend_bwd_rows):
+        f.launches = 0
+    metrics = tr.train_step(100)
+    torch.cuda.synchronize()
+    counts = dict(k1=fused_blend_fwd.launches, k2=fused_blend_bwd.launches,
+                  k3_fwd=fused_blend_fwd_rows.launches,
+                  k3_bwd=fused_blend_bwd_rows.launches)
+    finite = bool(torch.isfinite(torch.stack(
+        [m.double() for m in metrics.values()])).all())
+    log(dict(phase="train_step_payload_rows", launches=counts,
+             finite=finite, **CARD))
+    if counts != dict(k1=0, k2=0, k3_fwd=3, k3_bwd=3) or not finite:
+        raise AssertionError(f"payload_col=False step: {counts}, "
+                             f"finite {finite}")
+    return rep, fwd, bwd, counts
+
+
+# ----------------------------------------------------------------------------
+# K4: the tile-slot blend of the dense modes
+# ----------------------------------------------------------------------------
+
+
+def packed_tiles(device, t, k, seed, grid_x, prefix=False):
+    """tests/test_blend_pallas.make_tiles's packed [T, 16, K] table: centres
+    near their tile, random masks (prefix: each tile's first `count` slots,
+    as the dense view fills them)."""
+    import torch
+
+    rng = np.random.RandomState(seed)
+    origins = np.stack([(np.arange(t) % grid_x) * 16,
+                        (np.arange(t) // grid_x) * 16], -1)
+    mean2d = origins[:, None, :] + rng.uniform(-4, 20, (t, k, 2))
+    conic = np.zeros((t, k, 3))
+    conic[..., 0] = rng.uniform(0.05, 0.3, (t, k))
+    conic[..., 2] = rng.uniform(0.05, 0.3, (t, k))
+    conic[..., 1] = rng.uniform(-0.02, 0.02, (t, k))
+    opac = rng.uniform(0.1, 0.9, (t, k))
+    feat = rng.uniform(0, 1, (t, k, 5))
+    mask = rng.rand(t, k) > 0.1
+    if prefix:
+        mask = np.arange(k)[None, :] < rng.randint(0, k + 1, (t, 1))
+    rows = [mean2d[..., 0], mean2d[..., 1], conic[..., 0], conic[..., 1],
+            conic[..., 2], opac] + [feat[..., i] for i in range(5)] + [mask]
+    data = np.zeros((t, 16, k), np.float32)
+    data[:, :12] = np.stack(rows, 1)
+    return torch.tensor(data, device=device)
+
+
+K4_ROW_TOL = 2e-4
+
+
+def compare_k4_fwd(data, grid_x):
+    """K4 forward against its plain version on the same table: channels 0-4
+    within ATOL_CH, final_t within ATOL_T, n_contrib exact, channel 7 zero.
+    Returns (report, out)."""
+    import torch
+
+    from eogs2_tpu_torch.ops.blend_cuda import (blend_forward,
+                                                blend_forward_plain)
+
+    out = blend_forward(data, grid_x)
+    ref = blend_forward_plain(data, grid_x)
+    torch.cuda.synchronize()
+    rep = dict(tiles=int(data.shape[0]), k=int(data.shape[2]),
+               max_abs_err_ch0_4=float((out[..., :5] - ref[..., :5])
+                                       .abs().max()),
+               max_abs_err_final_t=float((out[..., 5] - ref[..., 5])
+                                         .abs().max()),
+               n_contrib_mismatches=int((out[..., 6] != ref[..., 6]).sum()),
+               saturated_pixel_share=float((out[..., 5] < 1e-2).float()
+                                           .mean()))
+    if not (rep["max_abs_err_ch0_4"] <= ATOL_CH
+            and rep["max_abs_err_final_t"] <= ATOL_T
+            and rep["n_contrib_mismatches"] == 0
+            and bool((out[..., 7] == 0).all())
+            and bool(torch.isfinite(out).all())):
+        raise AssertionError(f"K4 forward disagrees with its plain version: "
+                             f"{rep}")
+    return rep, out
+
+
+def compare_k4(data, grid_x, gout=None, seed=0):
+    """K4 forward and backward against their plain versions on the same
+    inputs; gout defaults to a seeded random cotangent with the forward's
+    final_t and n_contrib. Also two backward launches, bitwise equal."""
+    import torch
+
+    from eogs2_tpu_torch.ops.blend_cuda import (blend_backward,
+                                                blend_backward_plain)
+
+    rep, out = compare_k4_fwd(data, grid_x)
+    if gout is None:
+        gen = torch.Generator(device=data.device).manual_seed(seed)
+        gout = torch.randn(out.shape, generator=gen, device=data.device)
+        gout[..., 6:8] = out[..., 5:7]
+    g = blend_backward(data, gout, grid_x)
+    g2 = blend_backward(data, gout, grid_x)
+    g_ref = blend_backward_plain(data, gout, grid_x)
+    torch.cuda.synchronize()
+    scale = g_ref[:, :11].abs().amax(dim=(0, 2))
+    live = scale > 0
+    err_rows = ((g[:, :11] - g_ref[:, :11]).abs().amax(dim=(0, 2))
+                / scale.clamp_min(1e-30))
+    rep.update(bwd_max_row_rel_err=float(err_rows[live].max()),
+               bwd_max_abs_err=float((g - g_ref).abs().max()),
+               bwd_deterministic=bool(torch.equal(g, g2)))
+    ok = (rep["bwd_max_row_rel_err"] <= K4_ROW_TOL
+          and rep["bwd_deterministic"]
+          and bool((g[:, 11:] == 0).all()) and bool((g[:, :11][:, ~live] == 0)
+                                                     .all())
+          and bool(torch.isfinite(g).all()))
+    if not ok:
+        raise AssertionError(f"K4 disagrees with its plain version: {rep}")
+    return rep, out, gout
+
+
+def phase_k4_small(device):
+    worst = {}
+    cases = [(k, seed, False) for k in (256, 1024) for seed in (0, 1, 2)]
+    cases += [(1024, 3, True)]  # masks that end early, as in a render
+    for k, seed, prefix in cases:
+        rep, _, _ = compare_k4(packed_tiles(device, 48, k, seed, 8, prefix),
+                               8, seed=seed)
+        log(dict(phase="k4_vs_plain", seed=seed, prefix_masks=prefix, **rep,
+                 **CARD))
+        for key, v in rep.items():
+            if "err" in key:
+                worst[key] = max(worst.get(key, 0.0), v)
+    return worst
+
+
+# K4 forward's FP32 operations (counted from csrc/blend_tiles_fwd.cu): per
+# slot-pixel evaluation of a pair (mask set) dx, dy, the power quadratic (9),
+# the power test, min, exp, op * G, the 0.99 clamp and the alpha test (17);
+# per empty slot walked, the mask test (1); per composite (kept, live)
+# log1p, its add, exp, the T_EPS test, 1 - alpha, the division, alpha * T
+# and a multiply-add for each of the 5 channels (17). exp and log1p count
+# as one operation each: the SFU's rate is not in the bound.
+K4F_OPS_PER_EVAL, K4F_OPS_PER_EMPTY, K4F_OPS_PER_COMPOSITE = 17, 1, 17
+# K4 backward's: per evaluation the same 17; per contribution 1 - alpha,
+# exp(log final_t - s_after) (2), T (1), w (1), fdot (9), g_alpha (4), gG
+# (2), the 11 gradients (34), the suffix and log sums (4: log1p counted
+# once) and the 11 sums over the tile's pixels (11) = 69; per pixel
+# log(final_t) and final_t g_ft (2)
+K4B_OPS_PER_EVAL, K4B_OPS_PER_CONTRIB, K4B_OPS_PER_PIXEL = 17, 69, 2
+K4_BYTES_READ_PER_SLOT = 48  # rows 0-11 of the packed table
+K4_GRAD_BYTES_PER_SLOT = 44  # rows 0-10 of gdata, the ones with a gradient
+K4_BYTES_PER_SLOT = 64  # a slot of the [T, 16, K] table
+
+
+def k4_work(data, out, grid_x, chunk_elems=1 << 24):
+    """What this data needs of K4, counted with the plain version's
+    arithmetic. Forward: each pixel walks the slots up to and including the
+    one at which it stops, or up to its tile's last pair, evaluating those
+    that hold a pair; each tile reads its mask row and its slots up to its
+    pixels' deepest walk. Backward: each pixel evaluates the slots with a
+    pair below its n_contrib; contributions are the kept live slots; each
+    tile reads its slots below its deepest n_contrib (and its last pair)."""
+    import torch
+
+    from eogs2_tpu_torch.ops.blend_cuda import slot_fields, slots_in_use
+
+    n_tiles, _, k = data.shape
+    n_slots = slots_in_use(data)  # [T]
+    n_contrib = out[..., 6].long()  # [T, P]
+    walk_f = torch.minimum(n_contrib + 1, n_slots[:, None])
+    walk_b = torch.minimum(n_contrib, n_slots[:, None])
+    kmax = max(int(n_slots.max()), 1)
+    tc = max(1, chunk_elems // (256 * kmax))
+    w = dict(fwd_evals=0, fwd_empty=0, contributions=0, bwd_evals=0)
+    for t0 in range(0, n_tiles, tc):
+        t1 = min(t0 + tc, n_tiles)
+        k_len = int(n_slots[t0:t1].max())
+        if k_len == 0:
+            continue
+        _, _, _, _, keep = slot_fields(data, grid_x, t0, t1, k_len)
+        kk = torch.arange(k_len, device=data.device)[None, :, None]
+        has = (data[t0:t1, 11, :k_len] > 0.5)[..., None]  # [tc, k_len, 1]
+        walked = kk < walk_f[t0:t1, None, :]
+        live = kk < walk_b[t0:t1, None, :]
+        w["fwd_evals"] += int((walked & has).sum())
+        w["fwd_empty"] += int((walked & ~has).sum())
+        w["contributions"] += int((keep & live).sum())
+        w["bwd_evals"] += int((live & has).sum())
+    w["fwd_slots_read"] = int(walk_f.amax(dim=1).sum())
+    w["bwd_slots_read"] = int(walk_b.amax(dim=1).sum())
+    w["mask_bytes"] = 4 * n_tiles * k
+    return w
+
+
+def k4_bounds(data, out, grid_x):
+    """Least times the card needs for this K4 forward and backward: the
+    larger of bytes over the HBM rate (forward: the mask rows, the table up
+    to each tile's walk, out written; backward: the same reads, gout read,
+    gdata's gradient rows 0-10 up to each tile's walk written) and FP32
+    operations over the FP32 peak. The backward's zeros (rows 11-15, the
+    slots past the walk) carry no gradient: their write is a cost of the
+    [T, 16, K] interface, given apart as padded_table_write_ms."""
+    w = k4_work(data, out, grid_x)
+    n_tiles, _, k = data.shape
+    maps = n_tiles * 256 * 8 * 4
+    res = {}
+    for name, bytes_, ops in (
+            ("fwd", K4_BYTES_READ_PER_SLOT * w["fwd_slots_read"] + maps
+             + w["mask_bytes"],
+             K4F_OPS_PER_EVAL * w["fwd_evals"]
+             + K4F_OPS_PER_EMPTY * w["fwd_empty"]
+             + K4F_OPS_PER_COMPOSITE * w["contributions"]),
+            ("bwd", (K4_BYTES_READ_PER_SLOT + K4_GRAD_BYTES_PER_SLOT)
+             * w["bwd_slots_read"] + maps + w["mask_bytes"],
+             K4B_OPS_PER_EVAL * w["bwd_evals"]
+             + K4B_OPS_PER_CONTRIB * w["contributions"]
+             + K4B_OPS_PER_PIXEL * n_tiles * 256)):
+        t_bytes = bytes_ / H100_BYTES_PER_S * 1e3
+        t_ops = ops / H100_FP32_FLOPS * 1e3
+        res[name] = dict(bound_ms=max(t_bytes, t_ops),
+                         bound_by="bytes" if t_bytes >= t_ops
+                         else "operations", bytes=bytes_, ops=ops)
+    res["bwd"]["padded_table_write_ms"] = (
+        (K4_BYTES_PER_SLOT * n_tiles * k
+         - K4_GRAD_BYTES_PER_SLOT * w["bwd_slots_read"])
+        / H100_BYTES_PER_S * 1e3)
+    return res, w
+
+
+class capture_k4_calls:
+    """Within the block, record what every K4 blend of the dense routes
+    receives: each forward's (packed table, grid_x) and each backward's
+    (table, gout, grid_x). rasterize reads BlendTilesPallas from its module, so the block
+    swaps in a subclass that records and then runs the original (the
+    kernels launch and count as usual)."""
+
+    def __enter__(self):
+        from eogs2_tpu_torch import rasterizer
+        from eogs2_tpu_torch.ops.blend_cuda import backward_gout
+
+        self.mod, orig = rasterizer, rasterizer.BlendTilesPallas
+        self.fwd, self.bwd = [], []
+        cap = self
+
+        class Recording(orig):
+            @staticmethod
+            def forward(ctx, data, bg, grid_x):
+                cap.fwd.append((data.detach(), grid_x))
+                return orig.forward(ctx, data, bg, grid_x)
+
+            @staticmethod
+            def backward(ctx, g_img, g_ft):
+                data, bg, final_t, n_contrib = ctx.saved_tensors
+                cap.bwd.append((data.detach(), backward_gout(
+                    g_img, g_ft, bg, final_t, n_contrib), ctx.grid_x))
+                return orig.backward(ctx, g_img, g_ft)
+
+        self.orig, rasterizer.BlendTilesPallas = orig, Recording
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.BlendTilesPallas = self.orig
+
+
+class record_renders:
+    """Within the block, every rasterize call of the training step records
+    its demand statistics (max_tile_count, max_tiles_per_gaussian_seen) as
+    device tensors, read after the block."""
+
+    def __enter__(self):
+        import torch
+
+        from eogs2_tpu_torch import train
+
+        self.mod, orig = train, train.rasterize
+        self.stats = []
+
+        def recording(*args, **kw):
+            out = orig(*args, **kw)
+            self.stats.append(torch.stack(
+                [out.max_tile_count.long(),
+                 out.max_tiles_per_gaussian_seen.long()]))
+            return out
+
+        self.orig, train.rasterize = orig, recording
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.rasterize = self.orig
+
+    def maxima(self):
+        """(densest tile, widest Gaussian) over the recorded renders."""
+        import torch
+
+        m = torch.stack(self.stats).amax(dim=0).tolist()
+        return int(m[0]), int(m[1])
+
+
+def phase_train_fast(device, scene, width=1024, warmup=2, timed=10):
+    """The CLI's fast route (sorted binning, K4) in training."""
+    import torch
+
+    from eogs2_tpu_torch.ops.blend_cuda import (blend_backward,
+                                                blend_backward_plain,
+                                                blend_forward,
+                                                blend_forward_plain)
+    from eogs2_tpu_torch.ops.fused_raster import (fused_blend_bwd,
+                                                  fused_blend_bwd_rows,
+                                                  fused_blend_fwd,
+                                                  fused_blend_fwd_rows)
+    from eogs2_tpu_torch.rasterizer import RasterizeConfig
+    from eogs2_tpu_torch.train import Trainer, mean_metrics
+
+    cfg = train_recipe(warmup + timed + 1)
+    # the untimed sizing step: no emission clamp, a small K (its renders'
+    # demand statistics count before the K clamp)
+    size_cfg = RasterizeConfig(binning_mode="sorted", use_pallas=True,
+                               tile_capacity=128,
+                               max_tiles_per_gaussian=1 << 20)
+    t0 = time.perf_counter()
+    tr = Trainer(cfg, scene, size_cfg, device=device).setup()
+    start = {f: getattr(tr.model, f).detach().clone()
+             for f in ("xyz", "features_dc", "scaling", "rotation", "opacity")}
+    with record_renders() as rec:
+        tr.train_step(1)
+    demand = rec.maxima()
+    rcfg = size_cfg.bucketed(*demand)  # the JAX Trainer's sizing rule
+    k, tcap = rcfg.tile_capacity, rcfg.max_tiles_per_gaussian
+    tr.set_raster_cfg(rcfg)
+    for it in range(2, warmup + 2):
+        tr.train_step(it)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+
+    kernels = (blend_forward, blend_backward, fused_blend_fwd,
+               fused_blend_bwd, fused_blend_fwd_rows, fused_blend_bwd_rows)
+    torch.cuda.reset_peak_memory_stats()
+    for f in kernels:
+        f.launches = 0
+    steps, step_ms = [], []
+    with record_renders() as rec:
+        for it in range(warmup + 2, warmup + timed + 2):
+            t = time.perf_counter()
+            steps.append(tr.train_step(it))
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t) * 1e3)
+    launches = [f.launches for f in kernels]
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    if launches != [3 * timed, 3 * timed, 0, 0, 0, 0]:
+        raise AssertionError(f"launches over {timed} fast steps (K4 fwd, K4 "
+                             f"bwd, K1, K2, K3 fwd, K3 bwd): {launches}")
+    seen = rec.maxima()
+    if not (seen[0] < k and seen[1] <= tcap) or len(rec.stats) != 3 * timed:
+        raise AssertionError(f"a render clipped: densest tile {seen[0]} vs "
+                             f"K {k}, widest Gaussian {seen[1]} vs {tcap}")
+    metrics = mean_metrics(steps)
+    every = torch.stack([torch.stack([m[key].double() for key in m])
+                         for m in steps])
+    if not bool(torch.isfinite(every).all()):
+        raise AssertionError(f"non-finite metrics: {metrics}")
+    moved = {f: float((getattr(tr.model, f).detach() - x).abs().max())
+             for f, x in start.items()}
+    if min(moved.values()) <= 0:
+        raise AssertionError(f"parameters did not move: {moved}")
+    log(dict(phase="train_fast", init_gaussians=len(scene.init_xyz),
+             width=width, recipe="baseogs, sun and random camera from "
+             "iteration 1", config=f"sorted, use_pallas, tile_capacity {k}, "
+             f"max_tiles_per_gaussian {tcap}",
+             sizing_step_demand=dict(max_tile=demand[0],
+                                     max_tiles_per_gaussian=demand[1]),
+             timed_renders_max=dict(max_tile=seen[0],
+                                    max_tiles_per_gaussian=seen[1]),
+             ms_per_step=statistics.median(step_ms), step_ms=step_ms,
+             k4_fwd_launches_per_step=launches[0] / timed,
+             k4_bwd_launches_per_step=launches[1] / timed,
+             peak_mem_gib=peak_gib, setup_s=setup_s,
+             max_param_change=moved, metrics=metrics, **CARD))
+
+    log(dict(phase="train_fast_profile",
+             **profile_run(lambda: tr.train_step(warmup + timed + 2)),
+             **CARD))
+
+    # K4 at the main render's exact inputs of one step
+    with capture_k4_calls() as cap:
+        tr.train_step(warmup + timed + 3)
+        torch.cuda.synchronize()
+    main_ptr = cap.fwd[0][0].data_ptr()  # the main view renders first
+    data, gout, gx = next(c for c in cap.bwd if c[0].data_ptr() == main_ptr)
+    cap.fwd.clear()  # the other renders' tables (the sun's is the largest)
+    cap.bwd.clear()
+    del cap, tr
+    rep, out, _ = compare_k4(data, gx, gout=gout)
+    bounds, work = k4_bounds(data, out, gx)
+    fwd = dict(ms=time_cuda(lambda: blend_forward(data, gx), 10),
+               plain_ms=time_cuda(lambda: blend_forward_plain(data, gx), 1),
+               **bounds["fwd"])
+    bwd = dict(ms=time_cuda(lambda: blend_backward(data, gout, gx), 10),
+               plain_ms=time_cuda(
+                   lambda: blend_backward_plain(data, gout, gx), 1),
+               **bounds["bwd"])
+    log(dict(phase="k4_at_train_shape", render="main", width=width,
+             height=width, pairs=int(data[:, 11].sum()), **rep, work=work,
+             fwd=fwd,
+             bwd=bwd, **CARD))
+    return rep, fwd, bwd, launches[0], launches[1]
+
+
+def phase_serve_dense(device, n=1_000_000, width=1024):
+    """The serving path on gather + use_pallas (K4 forward)."""
+    import torch
+
+    from eogs2_tpu_torch.ops.binning import bin_gaussians
+    from eogs2_tpu_torch.ops.blend_cuda import blend_forward
+    from eogs2_tpu_torch.ops.projection import (compute_cov2d_direct,
+                                                preprocess_gaussians)
+    from eogs2_tpu_torch.pipeline import nadir_dsm, render_view_full
+    from eogs2_tpu_torch.rasterizer import RasterizeConfig
+
+    t0 = time.perf_counter()
+    model, view, scene, shading = serve_scene(n, width, seed=0, device=device)
+    # capacities from the three renders' demand, so that nothing clips
+    sun_cam, _ = view.sun_camera(f=2)
+    demand = []
+    with torch.no_grad():
+        for cam, w in ((view, width), (sun_cam, 2 * width),
+                       (scene.test_views[0].camera, width)):
+            aff = cam.resize_canvas(w, w).affine
+            cov2d = compute_cov2d_direct(model.get_scaling(), model.rotation,
+                                         aff, w, w)
+            prep = preprocess_gaussians(model.xyz, None, model.get_opacity(),
+                                        aff, w, w, cov2d=cov2d)
+            b = bin_gaussians(prep, w, w, max_tiles_per_gaussian=1 << 20)
+            demand.append((int(b.max_tile_count),
+                           int(prep.tiles_touched.max())))
+    cfg = RasterizeConfig(binning_mode="gather", use_pallas=True,
+                          eogs_features=True).bucketed(
+        max(d[0] for d in demand), max(d[1] for d in demand))
+    k, tcap = cfg.tile_capacity, cfg.max_tiles_per_gaussian
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+
+    def rvf():
+        return render_view_full(model, view, cfg, shading=shading)
+
+    def nadir():
+        return nadir_dsm(model, scene, cfg)
+
+    torch.cuda.reset_peak_memory_stats()
+    blend_forward.launches = 0
+    out = rvf()
+    torch.cuda.synchronize()
+    launches_rvf = blend_forward.launches
+    blend_forward.launches = 0
+    _, dsm, nout = nadir()
+    torch.cuda.synchronize()
+    launches_nadir = blend_forward.launches
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    if launches_rvf != 2 or launches_nadir != 1:
+        raise AssertionError(f"K4 launches: render_view_full {launches_rvf} "
+                             f"(want 2), nadir_dsm {launches_nadir} (want 1)")
+    rvf_ms, rvf_all = median_ms(rvf)
+    nadir_ms, nadir_all = median_ms(nadir)
+
+    # K4 forward at each render's exact table (view, sun, Nadir), captured
+    # from one more run of each entry point
+    with capture_k4_calls() as cap:
+        rvf()
+        nadir()
+        torch.cuda.synchronize()
+    tables = cap.fwd
+    del cap
+    if len(tables) != 3:
+        raise AssertionError(f"captured {len(tables)} K4 tables, want 3")
+    worst = {}
+    for name, (data, gx) in zip(("view", "sun", "nadir"), tables):
+        rep, _ = compare_k4_fwd(data, gx)
+        log(dict(phase="k4_at_serve_shape", render=name, width=16 * gx,
+                 height=data.shape[0] // gx * 16,
+                 pairs=int(data[:, 11].sum()), **rep, **CARD))
+        for key, v in rep.items():
+            if "err" in key or "mismatch" in key:
+                worst[key] = max(worst.get(key, 0), v)
+    del tables, data
+
+    log(dict(phase="serve_dense", gaussians=n, width=width, height=width,
+             sun_width=2 * width,
+             config=f"gather, use_pallas, eogs_features, tile_capacity {k}, "
+             f"max_tiles_per_gaussian {tcap}",
+             demand_view_sun_nadir=demand, setup_s=setup_s,
+             render_view_full_ms=rvf_ms, render_view_full_runs_ms=rvf_all,
+             nadir_dsm_ms=nadir_ms, nadir_dsm_runs_ms=nadir_all,
+             peak_mem_gib=peak_gib, k4_launches_render_view_full=launches_rvf,
+             k4_launches_nadir_dsm=launches_nadir,
+             **check_serve_outputs(out, nout, dsm, scene, width), **CARD))
+    return launches_rvf + launches_nadir, worst
+
+
+def safe_trainer(scene, device, seed=1):
+    """A Trainer on the safe route (gather, the plain dense blend) at lr 0,
+    its Gaussians given seeded random opacities, colours, anisotropic scales
+    and rotations (tests/test_torch_train.py's one-step state): the uniform
+    init's isotropic Gaussians have no rotation gradient to compare."""
+    import torch
+
+    from eogs2_tpu_torch import train as tt
+    from eogs2_tpu_torch.rasterizer import RasterizeConfig
+
+    tr = tt.Trainer(train_recipe(10), scene,
+                    RasterizeConfig(tile_capacity=1024,
+                                    max_tiles_per_gaussian=256),
+                    device=device).setup()
+    for opt in (tr.gauss_opt, tr.cam_opt):
+        for group in opt.param_groups:
+            group["lr"] = 0.0
+    rng = np.random.RandomState(seed)
+    n = tr.init_count
+    op = rng.uniform(0.2, 0.9, n)
+    q = rng.normal(0, 1, (n, 4))
+    new = dict(opacity=np.log(op / (1 - op))[:, None],
+               features_dc=((rng.uniform(0, 1, (n, 3)) - 0.5)
+                            / 0.28209479)[:, None, :],
+               scaling=rng.normal(0, 0.3, (n, 3)) - 0.7,
+               rotation=q / np.linalg.norm(q, axis=1, keepdims=True))
+    with torch.no_grad():
+        for f, x in new.items():
+            p = getattr(tr.model, f)
+            if f == "scaling":
+                x = p[:n].cpu().numpy() + x
+            p[:n] = torch.as_tensor(x, dtype=p.dtype, device=p.device)
+    return tr
+
+
+def safe_step(tr, bg, shear, iteration=5, view=1):
+    """One training step of tr with the given draws: (metrics, gradients)."""
+    import torch
+
+    from eogs2_tpu_torch import train as tt
+
+    dev = tr.device
+    step = tt.make_train_step((("msi", tr.consts, None, 0),), tr.cfg,
+                              tr.raster_cfg,
+                              tt.phase_for_iteration(tr.cfg, iteration),
+                              tr.gauss_opt, tr.cam_opt)
+    metrics = step(tr.model, tr.shading, view, torch.tensor(bg, device=dev),
+                   torch.tensor(shear, device=dev),
+                   tt.make_gates(tr.cfg, iteration, tr.init_count))
+    grads = {f: getattr(tr.model, f).grad.cpu()
+             for f in ("xyz", "features_dc", "scaling", "rotation",
+                       "opacity")}
+    return {k: float(v) for k, v in metrics.items()}, grads
+
+
+def phase_safe_small(device):
+    """One step of the safe route on the card against the same step on the
+    CPU, from the same state (the CPU model's parameters) and draws."""
+    import torch
+
+    from eogs2_tpu_torch.data.synthetic import (make_scene_arrays,
+                                                scene_from_arrays)
+    from eogs2_tpu_torch.ops.blend_cuda import blend_backward, blend_forward
+    from eogs2_tpu_torch.ops.fused_raster import (fused_blend_bwd,
+                                                  fused_blend_bwd_rows,
+                                                  fused_blend_fwd,
+                                                  fused_blend_fwd_rows)
+
+    arrays = make_scene_arrays(n_views=4, width=256, height=256, hf_res=256,
+                               n_buildings=6, seed=3, scale=38.0)
+    bg = np.float32([0.2, 0.7, 0.4, 0.0, 0.0])
+    shear = np.float32([0.3, -0.5])
+    cpu_tr = safe_trainer(scene_from_arrays(arrays, device="cpu"), "cpu")
+    card_tr = safe_trainer(scene_from_arrays(arrays, device=device), device)
+    card_tr.model.load_state_dict(cpu_tr.model.state_dict())
+    kernels = (blend_forward, blend_backward, fused_blend_fwd,
+               fused_blend_bwd, fused_blend_fwd_rows, fused_blend_bwd_rows)
+    for f in kernels:
+        f.launches = 0
+    t0 = time.perf_counter()
+    card, card_g = safe_step(card_tr, bg, shear)
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    launches = [f.launches for f in kernels]
+    t0 = time.perf_counter()
+    cpu, cpu_g = safe_step(cpu_tr, bg, shear)
+    cpu_s = time.perf_counter() - t0
+    terms = [k for k in cpu if k.startswith("L") or k in (
+        "loss", "L1", "photometric", "psnr")]
+    rel_terms = {k: abs(card[k] - cpu[k]) / (abs(cpu[k]) + 1e-12)
+                 for k in terms}
+    rel_grads = {f: float((card_g[f] - cpu_g[f]).abs().max()
+                          / cpu_g[f].abs().max().clamp_min(1e-30))
+                 for f in cpu_g}
+    log(dict(phase="safe_small", width=256, height=256,
+             gaussians=int(cpu_tr.model.alive.sum()),
+             config="gather, plain dense blend, tile_capacity 1024",
+             max_tile=cpu["max_tile"], loss=card["loss"],
+             max_rel_err_terms=max(rel_terms.values()),
+             rel_err_grads=rel_grads, hand_kernel_launches=launches,
+             card_step_s=card_s, cpu_step_s=cpu_s, **CARD))
+    if not (all(np.isfinite(list(card.values())))
+            and cpu["max_tile"] < 1024
+            and max(rel_terms.values()) <= 1e-4
+            and max(rel_grads.values()) <= 2e-4 and not any(launches)):
+        raise AssertionError(f"safe route step: terms {rel_terms}, grads "
+                             f"{rel_grads}, launches {launches}")
 
 
 def main() -> int:
@@ -785,41 +1564,74 @@ def main() -> int:
     CARD.update(card=name, power_limit=limit)
     device = torch.device("cuda")
 
+    # the fused route's phases first, in the order and state they had
+    # before the dense routes were added, so their times stay comparable
     phase_build()
     phase_k1_small(device)
     k2_small_err = phase_k2_small(device)
     per_render, serve_launches = phase_serve(device)
-    k2, k1_train, k2_train = phase_train(device)
+    scene, scene_s = train_scene(device)
+    k2, k1_train, k1_launches, k2_launches, captured, tr = phase_train(
+        device, scene, scene_s)
+    k3, k3_fwd, k3_bwd, k3_launches = phase_k3_at_train_shape(
+        device, captured, tr, k1_train, k2)
+    del captured, tr
+    gc.collect()  # the trainer's reference cycles hold device memory
+    k3_small_err = phase_k3_small(device)
+    k4_small = phase_k4_small(device)
+    k4, k4_fwd, k4_bwd, k4f_launches, k4b_launches = phase_train_fast(
+        device, scene)
+    del scene
+    gc.collect()
+    k4_serve_launches, k4_serve = phase_serve_dense(device)
+    phase_safe_small(device)
 
     view = per_render["view"]
-    log({"kernels": [{
-        "name": "fused_blend_fwd",
-        "route": "cuda",
-        "source": "eogs2_tpu_torch/csrc/fused_blend_fwd.cu",
-        "replaces": "eogs2_tpu/ops/fused_raster.py:532",
-        "launches": serve_launches + k1_train,
-        "max_abs_err": max(max(r["max_abs_err_ch0_4"],
-                               r["max_abs_err_final_t"])
-                           for r in per_render.values()),
-        "ms": view["ms"],
-        "plain_ms": view["plain_ms"],
-        "bound_ms": view["bound_ms"],
-        "bound_by": view["bound_by"],
-        "library_ms": None,
-    }, {
-        "name": "fused_blend_bwd",
-        "route": "cuda",
-        "source": "eogs2_tpu_torch/csrc/fused_blend_bwd.cu",
-        "replaces": "eogs2_tpu/ops/fused_raster.py:614",
-        "launches": k2_train,
-        "max_abs_err": k2["max_abs_err"],
-        "max_row_rel_err": max(k2["max_row_rel_err"], k2_small_err),
-        "ms": k2["ms"],
-        "plain_ms": k2["plain_ms"],
-        "bound_ms": k2["bound_ms"],
-        "bound_by": k2["bound_by"],
-        "library_ms": None,
-    }]})
+
+    def entry(name, source, replaces, launches, at, **errs):
+        return dict(name=name, route="cuda",
+                    source=f"eogs2_tpu_torch/csrc/{source}",
+                    replaces=f"eogs2_tpu/ops/{replaces}", launches=launches,
+                    **errs, ms=at["ms"], plain_ms=at["plain_ms"],
+                    bound_ms=at["bound_ms"], bound_by=at["bound_by"],
+                    library_ms=None)
+
+    log({"kernels": [
+        entry("fused_blend_fwd (K1)", "fused_blend_fwd.cu",
+              "fused_raster.py:532", serve_launches + k1_launches, view,
+              max_abs_err=max(max(r["max_abs_err_ch0_4"],
+                                  r["max_abs_err_final_t"])
+                              for r in per_render.values())),
+        entry("fused_blend_bwd (K2)", "fused_blend_bwd.cu",
+              "fused_raster.py:614", k2_launches, k2,
+              max_abs_err=k2["max_abs_err"],
+              max_row_rel_err=max(k2["max_row_rel_err"], k2_small_err)),
+        entry("fused_blend_fwd_rows (K3 forward)", "fused_blend_fwd.cu",
+              "fused_raster.py:236", k3_launches["k3_fwd"], k3_fwd,
+              max_abs_err=max(k3["max_abs_err_ch0_4"],
+                              k3["max_abs_err_final_t"], k3_small_err),
+              bitwise_equal_k1=k3["fwd_bitwise_equal_k1"]),
+        entry("fused_blend_bwd_rows (K3 backward)", "fused_blend_bwd.cu",
+              "fused_raster.py:317", k3_launches["k3_bwd"], k3_bwd,
+              max_abs_err=k2["max_abs_err"],
+              max_row_rel_err=k2["max_row_rel_err"],
+              bitwise_equal_k2=k3["bwd_bitwise_equal_k2"]),
+        entry("blend_forward (K4 forward)", "blend_tiles_fwd.cu",
+              "blend_pallas.py:134", k4f_launches + k4_serve_launches, k4_fwd,
+              max_abs_err=max(k4["max_abs_err_ch0_4"],
+                              k4["max_abs_err_final_t"],
+                              k4_small["max_abs_err_ch0_4"],
+                              k4_small["max_abs_err_final_t"],
+                              k4_serve["max_abs_err_ch0_4"],
+                              k4_serve["max_abs_err_final_t"]),
+              n_contrib_mismatches=k4["n_contrib_mismatches"]
+              + k4_serve["n_contrib_mismatches"]),
+        entry("blend_backward (K4 backward)", "blend_tiles_bwd.cu",
+              "blend_pallas.py:194", k4b_launches, k4_bwd,
+              max_abs_err=k4["bwd_max_abs_err"],
+              max_row_rel_err=max(k4["bwd_max_row_rel_err"],
+                                  k4_small["bwd_max_row_rel_err"])),
+    ]})
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

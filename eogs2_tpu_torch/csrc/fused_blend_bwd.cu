@@ -1,4 +1,4 @@
-// K2: backward blend of the fused route, for NVIDIA Hopper (sm_90a).
+// K2 and K3: backward blend of the fused route, for NVIDIA Hopper (sm_90a).
 //
 // Replaces the TPU kernel eogs2_tpu/ops/fused_raster.py:_bwd_kernel_col
 // (launched by _fused_bwd_call). For every 16x16 tile it walks the tile's
@@ -33,10 +33,15 @@
 // gets none, as in JAX (live is false there). The block walks up to its
 // deepest pixel's bound and writes zeros to the rows past it.
 //
-// Inputs: pay [11, stride] f32 (the sorted SoA payload K1 read), tstart,
-// cnt [T] i32, out8 [T, 256, 8] (K1's output), gout8 [T, 256, 8] (the
+// Inputs: pay (the sorted payload K1 or K3 read), tstart, cnt [T] i32,
+// out8 [T, 256, 8] (the forward's output), gout8 [T, 256, 8] (the
 // cotangent: channels 0-4 g_pix, 5 g_ft; 6-7 ignored).
-// Output: gpay [11, stride] f32, every row of every tile's range written.
+// Output: gpay in the payload's layout, every pair of every tile's range
+// written: K2 takes and writes the column layout [11, stride] f32; K3
+// (replacing eogs2_tpu/ops/fused_raster.py:_bwd_kernel, the wide layout)
+// the row layout [P, 16] f32, one 64-byte row per pair with fields 11-15
+// zero. Only the loads and stores differ, so K3's gpay is K2's transposed,
+// bit for bit.
 //
 // Design: one CTA of 256 threads per tile, one thread per pixel, batches of
 // 256 pairs staged in shared memory as in K1. Each thread computes its 11
@@ -58,25 +63,15 @@
 // Built with -fmad=false (ops/cuda_build.py) and the accurate expf, like
 // K1: the recomputed alpha, T and keep/stop decisions match K1 bit for bit.
 
-#include <cuda_runtime.h>
+#include "blend_common.cuh"
 
 namespace {
 
-constexpr int TILE = 16;
-constexpr int PIX = TILE * TILE;  // threads per block, one per pixel
-constexpr int NF = 11;            // payload rows
-constexpr int NC = 5;             // feature channels
-constexpr int NWARP = PIX / 32;
-constexpr int SUB = 32;           // pairs per block-level reduction round
-constexpr unsigned FULL = 0xffffffffu;
+using namespace eogs2;
 
-// the plain version compares float32 tensors with Python doubles, which
-// torch rounds to float32 once: round the same doubles here
-#define ALPHA_EPS ((float)(1.0 / 255.0))
-#define ALPHA_MAX ((float)0.99)
-#define T_EPS ((float)1e-4)
-#define POWER_TOL ((float)1e-4)
+constexpr int SUB = 32;  // pairs per block-level reduction round
 
+template <bool ROWS>
 __global__ void __launch_bounds__(PIX)
 fused_blend_bwd_kernel(const float* __restrict__ pay, long long stride,
                        const int* __restrict__ tstart,
@@ -85,7 +80,9 @@ fused_blend_bwd_kernel(const float* __restrict__ pay, long long stride,
                        const float* __restrict__ gout8,
                        float* __restrict__ gpay) {
   __shared__ float batch[NF][PIX];
-  __shared__ float part[NWARP][NF][SUB];
+  // the row layout's store reads part across f: pad it against bank
+  // conflicts (the column layout reads it along jj and needs no pad)
+  __shared__ float part[NWARP][NF][ROWS ? SUB + 1 : SUB];
   __shared__ int warp_walk[NWARP];
   const int tile = blockIdx.x;
   const int tid = threadIdx.x;
@@ -121,11 +118,7 @@ fused_blend_bwd_kernel(const float* __restrict__ pay, long long stride,
   for (int base = 0; base < n_walk; base += PIX) {
     __syncthreads();  // every thread is done with the previous batch
     const int k = base + tid;
-    if (k < n_walk) {
-      const float* src = pay + start + k;
-#pragma unroll
-      for (int f = 0; f < NF; ++f) batch[f][tid] = src[(long long)f * stride];
-    }
+    if (k < n_walk) stage_pair<ROWS>(batch, tid, pay, stride, start + k);
     __syncthreads();
     const int m = min(PIX, n_walk - base);
     for (int s0 = 0; s0 < m; s0 += SUB) {
@@ -185,29 +178,64 @@ fused_blend_bwd_kernel(const float* __restrict__ pay, long long stride,
         }
       }
       __syncthreads();
-      for (int idx = tid; idx < NF * SUB; idx += PIX) {
-        const int f = idx / SUB;
-        const int jj = idx % SUB;
-        if (jj < ms) {
-          float s = part[0][f][jj];
+      // the 8 warps' partials, added in a fixed order, written coalesced
+      const long long p0 = start + base + s0;
+      if (ROWS) {
+        for (int idx = tid; idx < NFR * SUB; idx += PIX) {
+          const int jj = idx / NFR;
+          const int f = idx % NFR;
+          if (jj < ms) {
+            float s = 0.0f;
+            if (f < NF) {
+              s = part[0][f][jj];
 #pragma unroll
-          for (int w = 1; w < NWARP; ++w) s += part[w][f][jj];
-          gpay[(long long)f * stride + start + base + s0 + jj] = s;
+              for (int w = 1; w < NWARP; ++w) s += part[w][f][jj];
+            }
+            gpay[(p0 + jj) * NFR + f] = s;
+          }
+        }
+      } else {
+        for (int idx = tid; idx < NF * SUB; idx += PIX) {
+          const int f = idx / SUB;
+          const int jj = idx % SUB;
+          if (jj < ms) {
+            float s = part[0][f][jj];
+#pragma unroll
+            for (int w = 1; w < NWARP; ++w) s += part[w][f][jj];
+            gpay[(long long)f * stride + p0 + jj] = s;
+          }
         }
       }
       __syncthreads();  // part is reused by the next round
     }
   }
-  // rows past the walk: no pixel composited them
-  for (int k = n_walk + tid; k < n; k += PIX) {
+  // pairs past the walk: no pixel composited them
+  if (ROWS) {
+    for (long long i = (long long)n_walk * NFR + tid; i < (long long)n * NFR;
+         i += PIX)
+      gpay[start * NFR + i] = 0.0f;
+  } else {
+    for (int k = n_walk + tid; k < n; k += PIX) {
 #pragma unroll
-    for (int f = 0; f < NF; ++f) gpay[(long long)f * stride + start + k] = 0.0f;
+      for (int f = 0; f < NF; ++f) gpay[(long long)f * stride + start + k] = 0.0f;
+    }
   }
+}
+
+template <bool ROWS>
+int launch(const float* pay, long long stride, const int* tstart,
+           const int* cnt, int n_tiles, int grid_x, const float* out8,
+           const float* gout8, float* gpay, void* stream) {
+  if (n_tiles > 0) {
+    fused_blend_bwd_kernel<ROWS><<<n_tiles, PIX, 0, (cudaStream_t)stream>>>(
+        pay, stride, tstart, cnt, grid_x, out8, gout8, gpay);
+  }
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// pay, gpay [11, stride] f32; tstart, cnt [n_tiles] i32; out8, gout8
+// K2. pay, gpay [11, stride] f32; tstart, cnt [n_tiles] i32; out8, gout8
 // [n_tiles, 256, 8] f32. Launches on `stream`; returns cudaGetLastError()
 // (0 on success).
 extern "C" int eogs2_fused_blend_bwd(const float* pay, long long stride,
@@ -215,9 +243,16 @@ extern "C" int eogs2_fused_blend_bwd(const float* pay, long long stride,
                                      int n_tiles, int grid_x,
                                      const float* out8, const float* gout8,
                                      float* gpay, void* stream) {
-  if (n_tiles > 0) {
-    fused_blend_bwd_kernel<<<n_tiles, PIX, 0, (cudaStream_t)stream>>>(
-        pay, stride, tstart, cnt, grid_x, out8, gout8, gpay);
-  }
-  return (int)cudaGetLastError();
+  return launch<false>(pay, stride, tstart, cnt, n_tiles, grid_x, out8, gout8,
+                       gpay, stream);
+}
+
+// K3. pay, gpay [P, 16] f32 (one row per sorted pair); otherwise as K2.
+extern "C" int eogs2_fused_blend_bwd_rows(const float* pay, const int* tstart,
+                                          const int* cnt, int n_tiles,
+                                          int grid_x, const float* out8,
+                                          const float* gout8, float* gpay,
+                                          void* stream) {
+  return launch<true>(pay, 0, tstart, cnt, n_tiles, grid_x, out8, gout8, gpay,
+                      stream);
 }

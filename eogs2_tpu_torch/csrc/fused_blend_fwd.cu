@@ -1,4 +1,4 @@
-// K1: forward blend of the fused route, for NVIDIA Hopper (sm_90a).
+// K1 and K3: forward blend of the fused route, for NVIDIA Hopper (sm_90a).
 //
 // Replaces the TPU kernel eogs2_tpu/ops/fused_raster.py:_fwd_kernel_col
 // (launched by _fused_fwd_call). For every 16x16 tile it walks the tile's
@@ -29,16 +29,25 @@
 //        compared with JAX,
 //   7    zero.
 //
-// Payload: structure of arrays [11, stride] float32 (mx, my, conic a, b, c,
-// opacity, 5 features), each row holding the sorted pairs; 44 B per pair.
+// Payload, in one of two layouts (the same 11 fields per pair: mx, my,
+// conic a, b, c, opacity, 5 features):
+//   column (K1): structure of arrays [11, stride] float32, each row holding
+//                the sorted pairs; 44 B per pair;
+//   row    (K3): one 64-byte row per pair, [P, 16] float32, fields 11-15
+//                zero; read as three float4 loads.
+// K3 replaces eogs2_tpu/ops/fused_raster.py:_fwd_kernel (the wide layout,
+// payload_col=False). Only the load differs: every product and sum is K1's,
+// in K1's order, so K3's out8 equals K1's bit for bit.
 //
 // Design: one CTA of 256 threads per tile, one thread per pixel. Batches of
 // 256 pairs are staged cooperatively in shared memory (11 x 256 floats,
-// 11 KB), read by all threads as broadcasts. Each pixel keeps T and its
-// sums in registers; the block stops as soon as __syncthreads_count shows
-// all 256 pixels done. No atomics: the output is deterministic.
+// 11 KB, from either layout), read by all threads as broadcasts. Each pixel
+// keeps T and its sums in registers; the block stops as soon as
+// __syncthreads_count shows all 256 pixels done. No atomics: the output is
+// deterministic.
 //
-// Bound on this card: the payload is read once per tile (44 B/pair) and the
+// Bound on this card: the payload is read once per tile (44 B/pair; K3
+// reads 48 of its 64 B) and the
 // output written once (8 KB/tile), a few hundred MB at 1M Gaussians, well
 // under a millisecond at 3.35 TB/s. The work is ~30 FP32 operations and one
 // SFU exp per pair-pixel evaluation, so FP32/SFU issue rate bounds it; the
@@ -49,22 +58,13 @@
 // torch.exp calls on the card: kernel and plain version agree bit for bit
 // on every keep and stop decision.
 
-#include <cuda_runtime.h>
+#include "blend_common.cuh"
 
 namespace {
 
-constexpr int TILE = 16;
-constexpr int PIX = TILE * TILE;  // threads per block, one per pixel
-constexpr int NF = 11;            // payload rows
-constexpr int NC = 5;             // feature channels
+using namespace eogs2;
 
-// the plain version compares float32 tensors with Python doubles, which
-// torch rounds to float32 once: round the same doubles here
-#define ALPHA_EPS ((float)(1.0 / 255.0))
-#define ALPHA_MAX ((float)0.99)
-#define T_EPS ((float)1e-4)
-#define POWER_TOL ((float)1e-4)
-
+template <bool ROWS>
 __global__ void __launch_bounds__(PIX)
 fused_blend_fwd_kernel(const float* __restrict__ pay, long long stride,
                        const int* __restrict__ tstart,
@@ -86,11 +86,7 @@ fused_blend_fwd_kernel(const float* __restrict__ pay, long long stride,
     // also the barrier that keeps the previous batch until all have read it
     if (__syncthreads_count(done) == PIX) break;
     const int k = base + tid;
-    if (k < n) {
-      const float* src = pay + start + k;
-#pragma unroll
-      for (int f = 0; f < NF; ++f) batch[f][tid] = src[(long long)f * stride];
-    }
+    if (k < n) stage_pair<ROWS>(batch, tid, pay, stride, start + k);
     __syncthreads();
     const int m = min(PIX, n - base);
     for (int j = 0; !done && j < m; ++j) {
@@ -118,17 +114,32 @@ fused_blend_fwd_kernel(const float* __restrict__ pay, long long stride,
   o[1] = make_float4(acc[4], T, (float)last, 0.0f);
 }
 
+template <bool ROWS>
+int launch(const float* pay, long long stride, const int* tstart,
+           const int* cnt, int n_tiles, int grid_x, float* out8,
+           void* stream) {
+  if (n_tiles > 0) {
+    fused_blend_fwd_kernel<ROWS><<<n_tiles, PIX, 0, (cudaStream_t)stream>>>(
+        pay, stride, tstart, cnt, grid_x, out8);
+  }
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
-// pay [11, stride] f32; tstart, cnt [n_tiles] i32; out8 [n_tiles, 256, 8] f32.
-// Launches on `stream`; returns cudaGetLastError() (0 on success).
+// K1. pay [11, stride] f32; tstart, cnt [n_tiles] i32; out8 [n_tiles, 256, 8]
+// f32. Launches on `stream`; returns cudaGetLastError() (0 on success).
 extern "C" int eogs2_fused_blend_fwd(const float* pay, long long stride,
                                      const int* tstart, const int* cnt,
                                      int n_tiles, int grid_x, float* out8,
                                      void* stream) {
-  if (n_tiles > 0) {
-    fused_blend_fwd_kernel<<<n_tiles, PIX, 0, (cudaStream_t)stream>>>(
-        pay, stride, tstart, cnt, grid_x, out8);
-  }
-  return (int)cudaGetLastError();
+  return launch<false>(pay, stride, tstart, cnt, n_tiles, grid_x, out8, stream);
+}
+
+// K3. pay [P, 16] f32 (one row per sorted pair); otherwise as K1.
+extern "C" int eogs2_fused_blend_fwd_rows(const float* pay, const int* tstart,
+                                          const int* cnt, int n_tiles,
+                                          int grid_x, float* out8,
+                                          void* stream) {
+  return launch<true>(pay, 0, tstart, cnt, n_tiles, grid_x, out8, stream);
 }

@@ -3,8 +3,9 @@
 Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled by
 ``nvcc`` for Hopper (``sm_90a``) into ``_build/lib<name>-<hash>.so`` inside
 the package (listed in .gitignore), then loaded with ctypes. The hash covers
-the source and the flags, so an edited source is rebuilt and a stale
-library is never loaded. Nothing here runs when a module is imported: the
+the source, every header of ``csrc/`` it includes (``#include "x.cuh"``,
+followed recursively) and the flags, so an edited source or shared header
+is rebuilt and a stale library is never loaded. Nothing here runs when a module is imported: the
 CPU tests import every module on a machine without nvcc.
 """
 
@@ -13,6 +14,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -44,10 +46,28 @@ def _nvcc() -> str:
                        "CUDA toolkit (set CUDA_HOME or put nvcc on PATH)")
 
 
+_LOCAL_INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.M)
+
+
+def source_files(name: str) -> list:
+    """csrc/<name>.cu and the csrc headers it includes, recursively."""
+    files, todo = [], [f"{name}.cu"]
+    while todo:
+        path = os.path.join(CSRC, todo.pop())
+        if path in files:
+            continue
+        files.append(path)
+        with open(path, "rb") as f:
+            todo += [m.decode() for m in _LOCAL_INCLUDE.findall(f.read())]
+    return files
+
+
 def _build(name: str) -> str:
     src = os.path.join(CSRC, f"{name}.cu")
-    with open(src, "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in source_files(name):
+        with open(path, "rb") as f:
+            digest.update(path[len(CSRC):].encode() + f.read())
     so = os.path.join(BUILD_DIR, f"lib{name}-{digest.hexdigest()[:16]}.so")
     if os.path.exists(so):
         return so
@@ -68,6 +88,22 @@ def load(name: str) -> ctypes.CDLL:
         if name not in _libs:
             _libs[name] = ctypes.CDLL(_build(name))
         return _libs[name]
+
+
+def entry(name: str, symbol: str, argtypes):
+    """The C entry point ``symbol`` of csrc/<name>.cu with its argument types
+    set (pointers and the stream as c_void_p); it returns the CUDA error of
+    the launch."""
+    fn = getattr(load(name), symbol)
+    fn.argtypes = argtypes
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def check_launch(err: int, what: str):
+    """Raise if a launch returned a CUDA error: nothing falls back."""
+    if err != 0:
+        raise RuntimeError(f"{what} kernel launch failed: CUDA error {err}")
 
 
 def build_all() -> list:

@@ -1,9 +1,10 @@
-"""Fused rasterization: demand-sized emission, one sort, the K1 blend kernel.
+"""Fused rasterization: demand-sized emission, one sort, the K1/K3 blend.
 
-Counterpart of ``eogs2_tpu/ops/fused_raster.py`` (forward). After one sort
-of the (tile, depth) keys each tile's pairs are a contiguous range
+Counterpart of ``eogs2_tpu/ops/fused_raster.py``. After one sort of the
+(tile, depth) keys each tile's pairs are a contiguous range
 [tstart[t], tstart[t] + cnt[t]) of the sorted payload, and the blend kernel
-K1 (``csrc/fused_blend_fwd.cu``) walks that range per tile.
+walks that range per tile: K1 (``csrc/fused_blend_fwd.cu``) on the column
+payload, K3 (the same source, row load) on the row payload.
 
 Differences from the JAX package, all deliberate:
 
@@ -24,16 +25,19 @@ Differences from the JAX package, all deliberate:
     different order than in JAX (both sorts are stable over their own
     emission). Parity scenes have no exact depth ties; seeded random means
     have none.
-  * The payload is a structure of arrays [11, P] float32 (mx, my, conic
-    a/b/c, opacity, 5 features), 44 B/pair. The TPU layout knobs
-    (payload_col, k_chunk, early_exit, tile_chunk) only change the JAX
-    kernels' layout, never their output, and are ignored.
+  * The payload holds 11 fields per pair (mx, my, conic a/b/c, opacity, 5
+    features) in one of two layouts, as JAX's ``payload_col`` chooses:
+    columns, a structure of arrays [11, P] float32 (44 B/pair, K1/K2), or
+    rows, [P, 16] float32 with one 64-byte row per pair and fields 11-15
+    zero (K3; JAX's wide layout pads each row to 128 lanes for the TPU).
+    Both give the same bits. The other TPU knobs (k_chunk, early_exit,
+    tile_chunk) change no output and are ignored.
 
-Backward: K2 (``csrc/fused_blend_bwd.cu``) writes dL/d(payload) per SORTED
-pair row (every row belongs to exactly one tile, so no atomics). The rows
-go back to per-Gaussian gradients in ``_GatherPairs.backward`` without
-atomics either: the emission is Gaussian-major, so scattering the sorted
-rows back through the sort's permutation (a permutation: no two rows
+Backward: K2 (``csrc/fused_blend_bwd.cu``; K3 on rows) writes dL/d(payload)
+per SORTED pair (every pair belongs to exactly one tile, so no atomics). The
+pairs go back to per-Gaussian gradients in ``_GatherPairs.backward``
+without atomics either: the emission is Gaussian-major, so scattering the
+sorted rows back through the sort's permutation (a permutation: no two rows
 collide) leaves each Gaussian's rows contiguous, and one segment sum
 (``torch.segment_reduce``, sequential within each segment) adds them in a
 fixed order. Gradients are therefore deterministic run to run; JAX does the
@@ -48,9 +52,9 @@ from typing import NamedTuple
 
 import torch
 
-from eogs2_tpu_torch.ops.binning import grid_dims
+from eogs2_tpu_torch.ops.binning import grid_dims, sort_emission
 from eogs2_tpu_torch.ops.blend import ALPHA_EPS, ALPHA_MAX, T_EPS
-from eogs2_tpu_torch.ops.pair_pipeline import emit_pairs
+from eogs2_tpu_torch.ops.pair_pipeline import emission_sum, emit_pairs
 from eogs2_tpu_torch.ops.projection import TILE, Preprocessed
 
 P = TILE * TILE  # pixels per tile
@@ -70,47 +74,43 @@ class FusedOut(NamedTuple):
     bulk_rect_max_tiles: torch.Tensor  # [] widest Gaussian rect
 
 
+NFR = 16  # row payload width: the 11 fields and 5 zeros, 64 B per pair
+
+
 class SortedPairs(NamedTuple):
-    pay: torch.Tensor  # [NF, P] f32 payload in (tile, depth) order
+    pay: torch.Tensor  # [NF, P] (columns) or [P, NFR] (rows) f32, sorted
     tstart: torch.Tensor  # [T] i32 first sorted pair of each tile
     cnt: torch.Tensor  # [T] i32 pairs per tile
     gid: torch.Tensor  # [P] i64 Gaussian of each sorted pair
 
 
-def depth_key(depth):
-    """float32 [N] -> int64 [N] in [0, 2^32) ordered as the floats."""
-    bits = depth.contiguous().view(torch.int32).to(torch.int64)
-    return torch.where(bits < 0, ~bits & 0xFFFFFFFF, bits | 0x80000000)
-
-
 class _GatherPairs(torch.autograd.Function):
-    """cols [k, N] -> cols[:, sgid] [k, P], with a deterministic backward.
+    """x.index_select(dim, sgid): per-Gaussian [k, N] columns (dim 1) or
+    [N, k] rows (dim 0) -> per sorted pair, with a deterministic backward.
 
-    perm [P] is the sort's permutation (sorted row i came from emission row
-    perm[i]) and lengths [N] the pairs of each Gaussian in the
+    perm [P] is the sort's permutation (sorted pair i came from emission
+    pair perm[i]) and lengths [N] the pairs of each Gaussian in the
     Gaussian-major emission (see the module docstring)."""
 
     @staticmethod
-    def forward(ctx, cols, sgid, perm, lengths):
+    def forward(ctx, x, sgid, perm, lengths, dim=1):
         ctx.save_for_backward(perm, lengths)
-        return cols.index_select(1, sgid)
+        ctx.dim = dim
+        return x.index_select(dim, sgid)
 
     @staticmethod
     def backward(ctx, g_pay):
         perm, lengths = ctx.saved_tensors
-        k, n = g_pay.shape[0], lengths.shape[0]
-        if perm.shape[0] == 0:
-            return g_pay.new_zeros((k, n)), None, None, None
-        g_em = g_pay.new_empty((perm.shape[0], k))
-        g_em[perm] = g_pay.t()  # back to emission order
-        g = torch.segment_reduce(g_em, "sum", lengths=lengths, axis=0,
-                                 unsafe=True)  # [N, k]
-        return g.t(), None, None, None
+        g_rows = g_pay if ctx.dim == 0 else g_pay.t()  # [P, k]
+        g = emission_sum(g_rows, perm, lengths)  # [N, k]
+        return (g if ctx.dim == 0 else g.t()), None, None, None, None
 
 
 def sort_pairs(prep: Preprocessed, features, width: int, height: int,
-               tile_cull: bool = False, eogs: bool = False) -> SortedPairs:
-    """Emission, sort and tile ranges; the sorted payload for K1.
+               tile_cull: bool = False, eogs: bool = False,
+               rows: bool = False) -> SortedPairs:
+    """Emission, sort and tile ranges; the sorted payload for K1, or for K3
+    with ``rows`` ([P, 16], one 64-byte row per pair).
 
     eogs: features are [rgb, altitude, 1]; the sort depth is then
     -features[:, 3] (detached, as eogs2_tpu's _fused_fwd keys it), and the
@@ -118,14 +118,11 @@ def sort_pairs(prep: Preprocessed, features, width: int, height: int,
     zeros for it). The altitude row is features[:, 3] itself, bit-equal to
     the negated sort depth, and carries the altitude gradient to xyz."""
     grid_x, grid_y = grid_dims(width, height)
-    n_tiles = grid_x * grid_y
     keys = Preprocessed(*(x.detach() for x in prep))
     depth = -features[:, 3].detach() if eogs else keys.depth
     gid, tile = emit_pairs(keys, grid_x, tile_cull=tile_cull)
-    key = (tile << 32) | depth_key(depth)[gid]
-    skey, perm = torch.sort(key, stable=True)
-    lengths = torch.bincount(gid, minlength=depth.shape[0])
-    gid = gid[perm]
+    gid, perm, lengths, tstart, cnt = sort_emission(
+        gid, tile, depth, grid_x * grid_y)
     cols = [prep.mean2d[:, 0], prep.mean2d[:, 1], prep.conic[:, 0],
             prep.conic[:, 1], prep.conic[:, 2], prep.opacity]
     if eogs:
@@ -133,12 +130,11 @@ def sort_pairs(prep: Preprocessed, features, width: int, height: int,
         cols.append(torch.ones_like(depth))
     else:
         cols += [features[:, j] for j in range(features.shape[1])]
-    pay = _GatherPairs.apply(torch.stack(cols, 0), gid, perm, lengths)
-    bounds = torch.searchsorted(
-        skey >> 32, torch.arange(n_tiles + 1, device=skey.device)
-    )
-    tstart = bounds[:-1].to(torch.int32)
-    cnt = (bounds[1:] - bounds[:-1]).to(torch.int32)
+    if rows:
+        x = torch.stack(cols + [torch.zeros_like(depth)] * (NFR - NF), 1)
+        pay = _GatherPairs.apply(x, gid, perm, lengths, 0)
+    else:
+        pay = _GatherPairs.apply(torch.stack(cols, 0), gid, perm, lengths, 1)
     return SortedPairs(pay.contiguous(), tstart, cnt, gid)
 
 
@@ -210,6 +206,25 @@ def fused_blend_fwd_plain(pay, tstart, cnt, grid_x: int,
     return out8
 
 
+def _check_grid(tstart, grid_x):
+    if grid_x < 1 or tstart.shape[0] % grid_x:
+        raise ValueError(f"{tstart.shape[0]} tiles do not fill rows of "
+                         f"grid_x={grid_x}")
+
+
+def _on_card(name, pay):
+    """True for a CUDA payload (launch the kernel), False for a CPU one
+    (take the plain version); any other device raises."""
+    if pay.device.type == "cpu":
+        return False
+    if pay.device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {pay.device}")
+    return True
+
+
+_VP, _I = ctypes.c_void_p, ctypes.c_int
+
+
 def fused_blend_fwd(pay, tstart, cnt, grid_x: int):
     """K1: per-tile front-to-back composite -> out8 [T, 256, 8] float32.
 
@@ -220,35 +235,57 @@ def fused_blend_fwd(pay, tstart, cnt, grid_x: int):
     The ranges must lie inside the payload (tstart + cnt <= pay.shape[1]),
     as sort_pairs makes them; the kernel does not check it, since that
     would wait for the card."""
-    if grid_x < 1 or tstart.shape[0] % grid_x:
-        raise ValueError(f"{tstart.shape[0]} tiles do not fill rows of "
-                         f"grid_x={grid_x}")
-    if pay.device.type == "cpu":
+    _check_grid(tstart, grid_x)
+    if not _on_card("fused_blend_fwd", pay):
         return fused_blend_fwd_plain(pay, tstart, cnt, grid_x)
-    if pay.device.type != "cuda":
-        raise ValueError(f"fused_blend_fwd: unsupported device {pay.device}")
     n_tiles = _check_blend_inputs("fused_blend_fwd", pay, tstart, cnt)
     from eogs2_tpu_torch.ops import cuda_build
 
-    lib = cuda_build.load("fused_blend_fwd")
-    fn = lib.eogs2_fused_blend_fwd
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
-                   ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-                   ctypes.c_void_p, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    fn = cuda_build.entry("fused_blend_fwd", "eogs2_fused_blend_fwd",
+                          [_VP, ctypes.c_longlong, _VP, _VP, _I, _I, _VP, _VP])
     out8 = torch.empty((n_tiles, P, 8), dtype=torch.float32, device=pay.device)
     with torch.cuda.device(pay.device):
         err = fn(pay.data_ptr(), pay.shape[1], tstart.data_ptr(),
                  cnt.data_ptr(), n_tiles, grid_x, out8.data_ptr(),
                  torch.cuda.current_stream().cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"fused_blend_fwd kernel launch failed: CUDA "
-                           f"error {err}")
+    cuda_build.check_launch(err, "fused_blend_fwd")
     fused_blend_fwd.launches += 1
     return out8
 
 
 fused_blend_fwd.launches = 0  # kernel launches on the card
+
+
+def _cols(pay_rows):
+    """Row payload [P, 16] -> the column payload [11, P] it holds."""
+    return pay_rows[:, :NF].t().contiguous()
+
+
+def fused_blend_fwd_rows(pay, tstart, cnt, grid_x: int):
+    """K3 forward: K1 on the row payload [P, 16] (one 64-byte row per
+    pair) -> the same out8, bit for bit. CPU tensors take K1's plain
+    version on the columns; CUDA tensors launch the kernel (the row load of
+    csrc/fused_blend_fwd.cu) or raise."""
+    _check_grid(tstart, grid_x)
+    if not _on_card("fused_blend_fwd_rows", pay):
+        return fused_blend_fwd_plain(_cols(pay), tstart, cnt, grid_x)
+    n_tiles = _check_blend_inputs("fused_blend_fwd_rows", pay, tstart, cnt,
+                                  rows=True)
+    from eogs2_tpu_torch.ops import cuda_build
+
+    fn = cuda_build.entry("fused_blend_fwd", "eogs2_fused_blend_fwd_rows",
+                          [_VP, _VP, _VP, _I, _I, _VP, _VP])
+    out8 = torch.empty((n_tiles, P, 8), dtype=torch.float32, device=pay.device)
+    with torch.cuda.device(pay.device):
+        err = fn(pay.data_ptr(), tstart.data_ptr(), cnt.data_ptr(), n_tiles,
+                 grid_x, out8.data_ptr(),
+                 torch.cuda.current_stream().cuda_stream)
+    cuda_build.check_launch(err, "fused_blend_fwd_rows")
+    fused_blend_fwd_rows.launches += 1
+    return out8
+
+
+fused_blend_fwd_rows.launches = 0  # kernel launches on the card
 
 
 def fused_blend_bwd_plain(pay, tstart, cnt, out8, g_out8, grid_x: int,
@@ -297,10 +334,15 @@ def fused_blend_bwd_plain(pay, tstart, cnt, out8, g_out8, grid_x: int,
     return g_pay
 
 
-def _check_blend_inputs(name, pay, tstart, cnt, *maps):
+def _check_blend_inputs(name, pay, tstart, cnt, *maps, rows=False):
     """Validate the kernels' inputs on the card; returns the tile count."""
     n_tiles = tstart.shape[0]
-    if pay.dtype != torch.float32 or pay.dim() != 2 or pay.shape[0] != NF:
+    if rows:
+        if (pay.dtype != torch.float32 or pay.dim() != 2
+                or pay.shape[1] != NFR):
+            raise ValueError(f"pay must be float32 [P, {NFR}], got "
+                             f"{pay.dtype} {tuple(pay.shape)}")
+    elif pay.dtype != torch.float32 or pay.dim() != 2 or pay.shape[0] != NF:
         raise ValueError(f"pay must be float32 [{NF}, P], got "
                          f"{pay.dtype} {tuple(pay.shape)}")
     for arg, x in (("tstart", tstart), ("cnt", cnt)):
@@ -327,32 +369,23 @@ def fused_blend_bwd(pay, tstart, cnt, out8, g_out8, grid_x: int):
     to :func:`fused_blend_bwd_plain`; CUDA tensors launch the hand-written
     kernel (csrc/fused_blend_bwd.cu, built at first use) or raise, never
     falling back to the plain version on the card."""
-    if grid_x < 1 or tstart.shape[0] % grid_x:
-        raise ValueError(f"{tstart.shape[0]} tiles do not fill rows of "
-                         f"grid_x={grid_x}")
-    if pay.device.type == "cpu":
+    _check_grid(tstart, grid_x)
+    if not _on_card("fused_blend_bwd", pay):
         return fused_blend_bwd_plain(pay, tstart, cnt, out8, g_out8, grid_x)
-    if pay.device.type != "cuda":
-        raise ValueError(f"fused_blend_bwd: unsupported device {pay.device}")
     n_tiles = _check_blend_inputs("fused_blend_bwd", pay, tstart, cnt,
                                   ("out8", out8), ("g_out8", g_out8))
     from eogs2_tpu_torch.ops import cuda_build
 
-    fn = cuda_build.load("fused_blend_bwd").eogs2_fused_blend_bwd
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
-                   ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-                   ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                   ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    fn = cuda_build.entry("fused_blend_bwd", "eogs2_fused_blend_bwd",
+                          [_VP, ctypes.c_longlong, _VP, _VP, _I, _I, _VP,
+                           _VP, _VP, _VP])
     g_pay = torch.empty_like(pay)
     with torch.cuda.device(pay.device):
         err = fn(pay.data_ptr(), pay.shape[1], tstart.data_ptr(),
                  cnt.data_ptr(), n_tiles, grid_x, out8.data_ptr(),
                  g_out8.data_ptr(), g_pay.data_ptr(),
                  torch.cuda.current_stream().cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"fused_blend_bwd kernel launch failed: CUDA "
-                           f"error {err}")
+    cuda_build.check_launch(err, "fused_blend_bwd")
     fused_blend_bwd.launches += 1
     return g_pay
 
@@ -360,39 +393,74 @@ def fused_blend_bwd(pay, tstart, cnt, out8, g_out8, grid_x: int):
 fused_blend_bwd.launches = 0  # kernel launches on the card
 
 
+def fused_blend_bwd_rows(pay, tstart, cnt, out8, g_out8, grid_x: int):
+    """K3 backward: K2 on the row payload [P, 16] -> g_pay [P, 16] (fields
+    11-15 zero), K2's gradients transposed, bit for bit. CPU tensors take
+    K2's plain version on the columns; CUDA tensors launch the kernel (the
+    row load and store of csrc/fused_blend_bwd.cu) or raise."""
+    _check_grid(tstart, grid_x)
+    if not _on_card("fused_blend_bwd_rows", pay):
+        g = fused_blend_bwd_plain(_cols(pay), tstart, cnt, out8, g_out8,
+                                  grid_x)
+        return torch.nn.functional.pad(g.t(), (0, NFR - NF))
+    n_tiles = _check_blend_inputs("fused_blend_bwd_rows", pay, tstart, cnt,
+                                  ("out8", out8), ("g_out8", g_out8),
+                                  rows=True)
+    from eogs2_tpu_torch.ops import cuda_build
+
+    fn = cuda_build.entry("fused_blend_bwd", "eogs2_fused_blend_bwd_rows",
+                          [_VP, _VP, _VP, _I, _I, _VP, _VP, _VP, _VP])
+    g_pay = torch.empty_like(pay)
+    with torch.cuda.device(pay.device):
+        err = fn(pay.data_ptr(), tstart.data_ptr(), cnt.data_ptr(), n_tiles,
+                 grid_x, out8.data_ptr(), g_out8.data_ptr(), g_pay.data_ptr(),
+                 torch.cuda.current_stream().cuda_stream)
+    cuda_build.check_launch(err, "fused_blend_bwd_rows")
+    fused_blend_bwd_rows.launches += 1
+    return g_pay
+
+
+fused_blend_bwd_rows.launches = 0  # kernel launches on the card
+
+
 class FusedBlend(torch.autograd.Function):
-    """Differentiable K1; its backward is kernel K2."""
+    """Differentiable fused blend: K1 and K2 on the column payload, K3 on
+    the row payload (``rows``)."""
 
     @staticmethod
-    def forward(ctx, pay, tstart, cnt, grid_x):
-        out8 = fused_blend_fwd(pay, tstart, cnt, grid_x)
+    def forward(ctx, pay, tstart, cnt, grid_x, rows=False):
+        fwd = fused_blend_fwd_rows if rows else fused_blend_fwd
+        out8 = fwd(pay, tstart, cnt, grid_x)
         ctx.save_for_backward(pay, tstart, cnt, out8)
-        ctx.grid_x = grid_x
+        ctx.grid_x, ctx.rows = grid_x, rows
         return out8
 
     @staticmethod
     def backward(ctx, g_out8):
         pay, tstart, cnt, out8 = ctx.saved_tensors
-        g_pay = fused_blend_bwd(pay, tstart, cnt, out8, g_out8.contiguous(),
-                                ctx.grid_x)
-        return g_pay, None, None, None
+        bwd = fused_blend_bwd_rows if ctx.rows else fused_blend_bwd
+        g_pay = bwd(pay, tstart, cnt, out8, g_out8.contiguous(), ctx.grid_x)
+        return g_pay, None, None, None, None
 
 
 def rasterize_fused(prep: Preprocessed, features, width: int, height: int,
-                    eogs_features: bool = False,
-                    tile_cull: bool = False) -> FusedOut:
+                    eogs_features: bool = False, tile_cull: bool = False,
+                    payload_col: bool = True) -> FusedOut:
     """Fused forward: FusedOut with out8 before the background composite.
 
     eogs_features: features are [rgb, altitude, 1] (renderer.py's layout);
     the sort depth is then -features[:, 3] (see sort_pairs).
-    tile_cull: drop provably dead pairs at emission (output-exact)."""
+    tile_cull: drop provably dead pairs at emission (output-exact).
+    payload_col: the column payload and K1/K2; False: the row payload and
+    K3 (the same output, bit for bit)."""
     grid_x, _ = grid_dims(width, height)
     if features.shape[1] != NC:
         raise ValueError(f"the fused blend composites {NC} channels, got "
                          f"features of shape {tuple(features.shape)}")
     eogs = bool(eogs_features)
-    sp = sort_pairs(prep, features, width, height, tile_cull, eogs)
-    out8 = FusedBlend.apply(sp.pay, sp.tstart, sp.cnt, grid_x)
+    rows = not payload_col
+    sp = sort_pairs(prep, features, width, height, tile_cull, eogs, rows)
+    out8 = FusedBlend.apply(sp.pay, sp.tstart, sp.cnt, grid_x, rows)
     dev = out8.device
     tiles = prep.tiles_touched.to(torch.int64)
     zero = torch.zeros((), dtype=torch.int64, device=dev)

@@ -1,8 +1,15 @@
-"""Public rasterizer: preprocess -> emission + sort -> K1 blend -> image.
+"""Public rasterizer: preprocess -> binning -> blend -> image.
 
-Counterpart of ``eogs2_tpu/rasterizer.py``. Only the ``fused`` route is
-ported so far (ops/fused_raster.py); the ``gather`` and ``sorted`` modes
-raise NotImplementedError until ROADMAP Queue 1 item 11 ports them.
+Counterpart of ``eogs2_tpu/rasterizer.py``, with every route of it:
+
+  * ``fused``: demand-sized emission, one sort, the ragged per-tile blend
+    K1/K2 on the column payload or K3 on the row payload (``payload_col``),
+    ops/fused_raster.py;
+  * ``gather`` and ``sorted``: the dense [T, K] view of the sorted pairs,
+    packed [T, 16, K] (ops/pair_pipeline.densify_pairs; the two modes
+    compute the same thing and share it here), blended by the plain dense
+    blend (ops/blend.py, on slices of the table) or, with ``use_pallas``,
+    by the tile-slot kernel K4 (ops/blend_cuda.py).
 """
 
 from __future__ import annotations
@@ -13,7 +20,11 @@ from typing import NamedTuple, Optional
 import torch
 
 from eogs2_tpu_torch.ops.binning import grid_dims
+from eogs2_tpu_torch.ops.blend import blend_tiles
+from eogs2_tpu_torch.ops.blend_cuda import BlendTilesPallas
+from eogs2_tpu_torch.ops.fused_raster import rasterize_fused
 from eogs2_tpu_torch.ops.gaussians import build_cov3d
+from eogs2_tpu_torch.ops.pair_pipeline import densify_pairs
 from eogs2_tpu_torch.ops.projection import (
     TILE,
     compute_cov2d_direct,
@@ -27,13 +38,20 @@ NUM_CHANNELS = 5  # RGB + altitude + constant-1 (config.h:15)
 class RasterizeConfig:
     """Same fields and defaults as eogs2_tpu.rasterizer.RasterizeConfig.
 
-    The port reads binning_mode, antialiasing, eogs_features and tile_cull.
-    Emission is sized by demand and the blend walks every pair, so the
-    capacities (pair_capacity, tile_capacity, max_tiles_per_gaussian, big_k,
-    big_tcap, rect_cap, big_rect_cap, dest_cap) never clip; the TPU layout
-    knobs (tile_chunk, payload_col, k_chunk, early_exit) change no output;
-    use_custom_vjp and use_pallas belong to the modes not yet ported. All
-    are accepted so one config drives both packages."""
+    The port reads binning_mode, antialiasing, eogs_features, tile_cull and
+    payload_col (fused route); tile_capacity, max_tiles_per_gaussian,
+    use_pallas, use_custom_vjp and tile_chunk (dense modes).
+
+    Which capacities clip: on the dense modes, as in JAX, each Gaussian
+    emits at most max_tiles_per_gaussian rect tiles and each tile blends at
+    most tile_capacity (K) pairs; num_pairs, max_tile_count and
+    max_tiles_per_gaussian_seen report the demand before the clamps, and the
+    Trainer grows both. The fused route sizes its emission by demand and
+    walks every pair, so nothing clips there. pair_capacity, big_k,
+    big_tcap, rect_cap, big_rect_cap and dest_cap size JAX's static tables
+    and clip nothing here; k_chunk and early_exit are TPU tuning knobs that
+    change no output (K4 takes any K). All are accepted so one config
+    drives both packages."""
 
     pair_capacity: int = 1 << 20
     tile_capacity: int = 1024
@@ -54,6 +72,25 @@ class RasterizeConfig:
     rect_cap: int = 0
     big_rect_cap: int = 0
 
+    def bucketed(self, max_tile: int,
+                 max_tiles_per_gaussian: int) -> "RasterizeConfig":
+        """The dense modes' capacities in the next power-of-two bucket that
+        fits the observed sizes (JAX's rule): tile_capacity above max_tile,
+        at least 128; max_tiles_per_gaussian at least the widest Gaussian,
+        at least 4."""
+
+        def up(x, lo):
+            c = lo
+            while c < x:
+                c <<= 1
+            return c
+
+        return dataclasses.replace(
+            self,
+            tile_capacity=up(int(max_tile) + 1, 128),
+            max_tiles_per_gaussian=up(int(max_tiles_per_gaussian), 4),
+        )
+
 
 class RasterOut(NamedTuple):
     image: torch.Tensor  # [C,H,W]
@@ -61,10 +98,10 @@ class RasterOut(NamedTuple):
     radii: torch.Tensor  # [N] int32 screen radius (0 = culled)
     mean2d_ndc: torch.Tensor  # [N,2] projected centers in NDC
     num_pairs: torch.Tensor  # [] pair demand (live pairs with tile_cull)
-    max_tile_count: torch.Tensor  # [] densest tile
+    max_tile_count: torch.Tensor  # [] densest tile, before the K clamp
     max_tiles_per_gaussian_seen: Optional[torch.Tensor] = None
     dropped_pairs: Optional[torch.Tensor] = None  # multi-device path only
-    clipped_pairs: Optional[torch.Tensor] = None  # always 0 on the port
+    clipped_pairs: Optional[torch.Tensor] = None  # fused: always 0; dense: None
     big_max_tiles_seen: Optional[torch.Tensor] = None
     max_dest_count: Optional[torch.Tensor] = None  # multi-device path only
     bulk_rect_max_seen: Optional[torch.Tensor] = None
@@ -92,14 +129,8 @@ def rasterize(
     out + final_t * bg; alive optional [N] bool; mean2d_ndc_offset optional
     [N,2] whose gradient is the viewspace-point gradient in NDC units.
     Runs on the device of its tensors."""
-    if config.binning_mode != "fused":
-        raise NotImplementedError(
-            f"binning_mode={config.binning_mode!r} is not ported yet (ROADMAP "
-            f"Queue 1 item 11, the other raster modes); use binning_mode="
-            f"'fused'"
-        )
-    from eogs2_tpu_torch.ops.fused_raster import rasterize_fused
-
+    if config.binning_mode not in ("fused", "gather", "sorted"):
+        raise ValueError(f"unknown binning_mode {config.binning_mode!r}")
     cov2d = compute_cov2d_direct(scales, quats, affine, width, height)
     prep = preprocess_gaussians(
         means3d, None, opacities, affine, width, height,
@@ -112,19 +143,38 @@ def rasterize(
         prep = prep._replace(mean2d=prep.mean2d + mean2d_ndc_offset * px_scale)
 
     grid_x, grid_y = grid_dims(width, height)
-    fo = rasterize_fused(prep, features, width, height,
-                         eogs_features=config.eogs_features,
-                         tile_cull=config.tile_cull)
-    out = fo.out8[:, :, :5] + fo.out8[:, :, 5:6] * bg[None, None, :]
-    ro = _assemble(prep, out, fo.out8[:, :, 5], fo.num_pairs,
-                   fo.max_tile_count, features.shape[-1], width, height,
-                   grid_x, grid_y)
-    return ro._replace(
-        max_tiles_per_gaussian_seen=fo.bulk_max_tiles,
-        clipped_pairs=fo.clipped_pairs,
-        big_max_tiles_seen=fo.big_max_tiles,
-        bulk_rect_max_seen=fo.bulk_rect_max_tiles,
-    )
+    if config.binning_mode == "fused":
+        fo = rasterize_fused(prep, features, width, height,
+                             eogs_features=config.eogs_features,
+                             tile_cull=config.tile_cull,
+                             payload_col=config.payload_col)
+        out = fo.out8[:, :, :5] + fo.out8[:, :, 5:6] * bg[None, None, :]
+        ro = _assemble(prep, out, fo.out8[:, :, 5], fo.num_pairs,
+                       fo.max_tile_count, features.shape[-1], width, height,
+                       grid_x, grid_y)
+        return ro._replace(
+            max_tiles_per_gaussian_seen=fo.bulk_max_tiles,
+            clipped_pairs=fo.clipped_pairs,
+            big_max_tiles_seen=fo.big_max_tiles,
+            bulk_rect_max_seen=fo.bulk_rect_max_tiles,
+        )
+
+    pd = densify_pairs(prep, features, width, height,
+                       tcap=config.max_tiles_per_gaussian,
+                       tile_capacity=config.tile_capacity)
+    if config.use_pallas:
+        out, final_t = BlendTilesPallas.apply(pd.data, bg, grid_x)
+    else:
+        d = pd.data.transpose(1, 2)  # [T, K, 16]
+        ids = torch.arange(grid_x * grid_y, device=prep.mean2d.device)
+        origins = torch.stack([ids % grid_x, ids // grid_x], -1).to(
+            prep.mean2d.dtype) * TILE
+        out, final_t = blend_tiles(d[..., 0:2], d[..., 2:5], d[..., 5],
+                                   d[..., 6:11], pd.mask, origins, bg,
+                                   tile_chunk=config.tile_chunk,
+                                   use_custom_vjp=config.use_custom_vjp)
+    return _assemble(prep, out, final_t, pd.num_pairs, pd.max_tile_count,
+                     features.shape[-1], width, height, grid_x, grid_y)
 
 
 def _assemble(prep, out, final_t, num_pairs, max_tile_count, c,

@@ -5,9 +5,12 @@ the per-iteration recipe: main render -> sun-camera render resampled onto
 it -> shading -> random-camera consistency -> weighted loss sum -> Adam ->
 densification statistics and pruning.
 
-  * The step renders on the ``fused`` route (the trainer always uses the
-    EOGS channel layout, so ``eogs_features`` is set), and every render's
-    backward is kernel K2 (ops/fused_raster.py).
+  * The step renders on any route of ``rasterize``: the Trainer's default
+    is ``RasterizeConfig()``, the ``gather`` mode with the plain dense blend
+    (the CLI's ``safe``), as in JAX; ``sorted`` with ``use_pallas`` (the
+    CLI's ``fast``) blends with kernel K4, and ``fused`` with K1/K2 (or K3
+    with ``payload_col=False``). The trainer always uses the EOGS channel
+    layout, so ``eogs_features`` is set.
   * State is a :class:`GaussianModel` (raw parameters as nn.Parameters,
     bookkeeping as buffers) and a :class:`CameraShadingParams` whose leaves
     require grad, with two ``torch.optim.Adam``: the Gaussians' (eps 1e-15,
@@ -22,10 +25,16 @@ densification statistics and pruning.
   * The densification statistic (viewspace-gradient norm) is the gradient
     of a zero NDC offset of the projected centres, as in JAX.
 
-Not ported, as artefacts of XLA's static shapes that demand-sized emission
-does not need: ``probe_capacities``, ``next_buckets``,
-``prewarm_bucket_ladder``, capacity rebucketing, ``early_exit_auto``,
-``steps_per_dispatch`` and the step's ``.chunk`` (lax.scan) path.
+The dense modes clip at ``tile_capacity`` and ``max_tiles_per_gaussian``,
+as in JAX, so the Trainer grows them on JAX's triggers (every 50
+iterations: ``tile_capacity`` when the densest tile reaches 95% of it,
+``max_tiles_per_gaussian`` when the widest Gaussian exceeds it), each to the
+power-of-two bucket of the observed demand, as JAX's reprobe re-sizes to
+live demand rather than stepping one bucket; with nothing to recompile, a
+grow is a config replace. Not ported: ``probe_capacities`` itself (ROADMAP
+Queue 3), ``next_buckets`` and ``prewarm_bucket_ladder`` (compile-cache
+warmers), ``early_exit_auto``, ``steps_per_dispatch`` and the step's
+``.chunk`` (lax.scan) path.
 Still to port (ROADMAP Queue 1): densification by clone/split and the
 opacity reset with its Adam-moment surgery, early stopping (item 7);
 evaluation hooks and training_report (item 8); flow matching, colour reset,
@@ -390,7 +399,10 @@ def make_train_step(
                 "max_tiles_per_gaussian": out.max_tiles_per_gaussian_seen,
                 "sat_frac": L.masked_mean((out.final_t < 1e-2).float(),
                                           valid[0]),
-                "clipped_pairs": out.clipped_pairs,
+                "clipped_pairs": (out.clipped_pairs
+                                  if out.clipped_pairs is not None
+                                  else torch.zeros((), dtype=torch.int64,
+                                                   device=image.device)),
                 **{k: v.detach() for k, v in terms.items()},
             }
         return total, metrics, out.radii
@@ -445,8 +457,9 @@ _UNPORTED = "is not ported yet (ROADMAP Queue 1 item {})"
 class Trainer:
     """Host-side orchestration for one modality on one device: camera
     sampling, phase scheduling, the step, transparent-Gaussian pruning and
-    metrics averaged every ``tb_log_interval`` iterations (the only host
-    syncs besides the renders' demand-sized emission).
+    metrics averaged every ``tb_log_interval`` iterations and, on the dense
+    modes, the capacity grow every 50 (the only host syncs besides the
+    renders' demand-sized emission).
 
     ``Trainer(cfg, scene, raster_cfg).setup().train(n)``; ``device=None``
     means CUDA (raises without it), ``device="cpu"`` runs the plain
@@ -454,7 +467,7 @@ class Trainer:
 
     cfg: TrainConfig
     scene: SceneData
-    raster_cfg: RasterizeConfig = RasterizeConfig(binning_mode="fused")
+    raster_cfg: RasterizeConfig = RasterizeConfig()
     device: Optional[object] = None
 
     def setup(self):
@@ -496,6 +509,29 @@ class Trainer:
         self.generator = torch.Generator(device=dev).manual_seed(cfg.seed)
         self.metrics_history = []
         return self
+
+    def set_raster_cfg(self, raster_cfg: RasterizeConfig):
+        """Render with raster_cfg from the next step on."""
+        if raster_cfg != self.raster_cfg:
+            self.raster_cfg = raster_cfg
+            self._steps = {}  # the steps hold the config they were built with
+
+    def _grow_capacities(self, metrics):
+        """The dense modes' capacity grow, checked every 50 iterations on
+        the step's main render (one host sync of two scalars): JAX's
+        triggers (the densest tile at 95% of tile_capacity, a Gaussian wider
+        than max_tiles_per_gaussian), and each capacity re-sized to the
+        demand's bucket (RasterizeConfig.bucketed, the densest tile kept
+        below 95% of it), never shrunk."""
+        rc = self.raster_cfg
+        if rc.binning_mode == "fused":
+            return  # the fused route reads neither capacity
+        want = rc.bucketed(float(metrics["max_tile"]) / 0.95,
+                           float(metrics["max_tiles_per_gaussian"]))
+        self.set_raster_cfg(dataclasses.replace(
+            rc, tile_capacity=max(rc.tile_capacity, want.tile_capacity),
+            max_tiles_per_gaussian=max(rc.max_tiles_per_gaussian,
+                                       want.max_tiles_per_gaussian)))
 
     def _get_step(self, phase: Phase):
         if phase not in self._steps:
@@ -568,6 +604,8 @@ class Trainer:
         t0 = time.time()
         for iteration in range(1, iters + 1):
             interval.append(self.train_step(iteration))
+            if iteration % 50 == 0:
+                self._grow_capacities(interval[-1])
             if iteration % log_every == 0:
                 m = mean_metrics(interval)
                 m["iteration"] = iteration

@@ -22,7 +22,8 @@ import torch
 import jax
 
 from eogs2_tpu.rasterizer import rasterize as jrasterize
-from eogs2_tpu_torch.ops.fused_raster import (_GatherPairs, depth_key,
+from eogs2_tpu_torch.ops.binning import depth_key
+from eogs2_tpu_torch.ops.fused_raster import (_GatherPairs,
                                               fused_blend_bwd,
                                               fused_blend_bwd_plain,
                                               fused_blend_fwd,
@@ -200,13 +201,6 @@ def test_plain_blend_chunking_is_invisible():
     assert whole[..., 6].max() <= sp.cnt.max()
     # n_contrib is the 1-based position of the pixel's last composited pair
     assert (whole[..., 6] == torch.floor(whole[..., 6])).all()
-
-
-def test_unported_modes_raise():
-    args = _t(make_scene(n=16, seed=0))
-    for mode in ("gather", "sorted"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            rasterize(*args, 32, 32, RasterizeConfig(binning_mode=mode))
 
 
 GRAD_NAMES = ("means", "scales", "quats", "opacities", "features", "affine",

@@ -42,8 +42,10 @@ def test_forbidden_matcher_respects_the_shared_prefix():
 
 def test_importing_every_module_loads_no_jax():
     mods = _modules()
-    for m in ("ops.fused_raster", "pipeline", "train", "losses", "config",
-              "densify", "ops.ssim", "ops.knn", "data.synthetic"):
+    for m in ("ops.fused_raster", "ops.blend_cuda", "ops.blend",
+              "ops.binning", "ops.pair_pipeline", "pipeline", "train",
+              "losses", "config", "densify", "ops.ssim", "ops.knn",
+              "data.synthetic"):
         assert "eogs2_tpu_torch." + m in mods, m
     code = (
         "import importlib, sys\n"

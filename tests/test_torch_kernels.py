@@ -7,22 +7,28 @@ JAX test harness of tests/conftest.py:
 
     python -m pytest tests/test_torch_kernels.py -m cuda --noconftest
 
-Tolerances: K1's channels 0-4 atol 2e-4 and final_T atol 2e-5, those of
-tests/test_golden.py (pairs at the 1/255 and T_EPS edges may be decided
-differently after a one-ulp difference in exp). K2 and the gradients of
-rasterize: per payload row / per input, max-abs error over the max-abs
-value < 2e-4 (test_golden.py's gradient tolerance; sums over pixels run in
-another order).
+Tolerances: K1's and K4's channels 0-4 atol 2e-4 and final_T atol 2e-5,
+those of tests/test_golden.py (pairs at the 1/255 and T_EPS edges may be
+decided differently after a one-ulp difference in exp); K4's n_contrib
+exact. K2, K4 backward and the gradients of rasterize: per payload row /
+per input, max-abs error over the max-abs value < 2e-4 (test_golden.py's
+gradient tolerance; sums over pixels run in another order). K3 equals
+K1/K2 bit for bit (the same arithmetic, another load).
 """
 
 import numpy as np
 import pytest
 import torch
 
-from eogs2_tpu_torch.ops.fused_raster import (fused_blend_bwd,
+from eogs2_tpu_torch.ops.blend_cuda import (blend_backward,
+                                            blend_backward_plain,
+                                            blend_forward, blend_forward_plain)
+from eogs2_tpu_torch.ops.fused_raster import (NF, fused_blend_bwd,
                                               fused_blend_bwd_plain,
+                                              fused_blend_bwd_rows,
                                               fused_blend_fwd,
                                               fused_blend_fwd_plain,
+                                              fused_blend_fwd_rows,
                                               sort_pairs)
 from eogs2_tpu_torch.ops.projection import (compute_cov2d_direct,
                                             preprocess_gaussians)
@@ -33,8 +39,8 @@ from eogs2_tpu_torch.rasterizer import (RasterizeConfig, rasterize,
 @pytest.fixture
 def cuda():
     if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device: the K1 and K2 kernels run only "
-                    "on the card")
+        pytest.skip("needs a CUDA device: the hand-written kernels run "
+                    "only on the card")
     return torch.device("cuda")
 
 
@@ -166,3 +172,112 @@ def test_k2_rejects_bad_inputs(cuda):
     with pytest.raises(ValueError, match="contiguous"):
         fused_blend_bwd(pay, idx, idx, out8,
                         out8.transpose(0, 1).contiguous().transpose(0, 1), 2)
+
+
+def _tiles(device, t, k, seed, grid_x, prefix=False):
+    """tests/test_blend_pallas.make_tiles's packed [T, 16, K] table, built
+    here without JAX: centres near their tile, random masks (prefix: each
+    tile's first `count` slots, as the dense view fills them)."""
+    rng = np.random.RandomState(seed)
+    origins = np.stack([(np.arange(t) % grid_x) * 16,
+                        (np.arange(t) // grid_x) * 16], -1)
+    mean2d = origins[:, None, :] + rng.uniform(-4, 20, (t, k, 2))
+    conic = np.zeros((t, k, 3))
+    conic[..., 0] = rng.uniform(0.05, 0.3, (t, k))
+    conic[..., 2] = rng.uniform(0.05, 0.3, (t, k))
+    conic[..., 1] = rng.uniform(-0.02, 0.02, (t, k))
+    opac = rng.uniform(0.1, 0.9, (t, k))
+    feat = rng.uniform(0, 1, (t, k, 5))
+    mask = rng.rand(t, k) > 0.1
+    if prefix:
+        mask = np.arange(k)[None, :] < rng.randint(0, k + 1, (t, 1))
+    rows = [mean2d[..., 0], mean2d[..., 1], conic[..., 0], conic[..., 1],
+            conic[..., 2], opac] + [feat[..., i] for i in range(5)] + [mask]
+    data = np.zeros((t, 16, k), np.float32)
+    data[:, :12] = np.stack(rows, 1)
+    return torch.tensor(data, device=device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("prefix", [False, True])
+@pytest.mark.parametrize("k", [256, 1024])
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_k4_matches_plain(cuda, k, seed, prefix):
+    data = _tiles(cuda, 12, k, seed, grid_x=4, prefix=prefix)
+    before = blend_forward.launches
+    out = blend_forward(data, 4)
+    assert blend_forward.launches == before + 1
+    ref = blend_forward_plain(data, 4)
+    torch.cuda.synchronize()
+    assert torch.isfinite(out).all()
+    torch.testing.assert_close(out[..., :5], ref[..., :5], atol=2e-4, rtol=0)
+    torch.testing.assert_close(out[..., 5], ref[..., 5], atol=2e-5, rtol=0)
+    assert torch.equal(out[..., 6], ref[..., 6])
+    assert (out[..., 7] == 0).all()
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    gout = torch.randn(out.shape, generator=gen, device=cuda)
+    gout[..., 6:8] = out[..., 5:7]
+    before = blend_backward.launches
+    g = blend_backward(data, gout, 4)
+    assert blend_backward.launches == before + 1
+    g_ref = blend_backward_plain(data, gout, 4)
+    torch.cuda.synchronize()
+    assert torch.isfinite(g).all() and (g[:, 11:] == 0).all()
+    for r in range(11):
+        err = (g[:, r] - g_ref[:, r]).abs().max()
+        assert float(err / g_ref[:, r].abs().max().clamp_min(1e-30)) < 2e-4
+    # deterministic: no atomics, the same bits on a second launch
+    assert torch.equal(g, blend_backward(data, gout, 4))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tile_cull", [False, True])
+def test_k3_equals_k1_k2(cuda, tile_cull):
+    w = h = 128
+    args = _scene(cuda, 2048, seed=3)
+    cov2d = compute_cov2d_direct(args[1], args[2], args[5], w, h)
+    prep = preprocess_gaussians(args[0], None, args[3], args[5], w, h,
+                                cov2d=cov2d)
+    col = sort_pairs(prep, args[4], w, h, tile_cull=tile_cull, eogs=True)
+    row = sort_pairs(prep, args[4], w, h, tile_cull=tile_cull, eogs=True,
+                     rows=True)
+    assert torch.equal(row.pay[:, :NF].t(), col.pay)
+    out8 = fused_blend_fwd(col.pay, col.tstart, col.cnt, 8)
+    before = fused_blend_fwd_rows.launches
+    out8_rows = fused_blend_fwd_rows(row.pay, row.tstart, row.cnt, 8)
+    assert fused_blend_fwd_rows.launches == before + 1
+    assert torch.equal(out8_rows, out8)
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    g_out8 = torch.randn(out8.shape, generator=gen, device=cuda)
+    g_col = fused_blend_bwd(col.pay, col.tstart, col.cnt, out8, g_out8, 8)
+    g_row = fused_blend_bwd_rows(row.pay, row.tstart, row.cnt, out8, g_out8, 8)
+    torch.cuda.synchronize()
+    assert torch.equal(g_row[:, :NF].t(), g_col)
+    assert (g_row[:, NF:] == 0).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["gather", "sorted"])
+def test_dense_rasterize_on_card_matches_cpu(cuda, mode):
+    """The K4 route's image and every input's gradient on the card against
+    the plain versions on the CPU."""
+    ct = torch.from_numpy(np.random.RandomState(0).normal(
+        size=(5, 128, 128)).astype(np.float32))
+    cfg = RasterizeConfig(binning_mode=mode, use_pallas=True,
+                          tile_capacity=256, max_tiles_per_gaussian=64)
+    res = []
+    for dev in (cuda, torch.device("cpu")):
+        args = _scene(dev, 512, seed=7)
+        leaves = [a.clone().requires_grad_(True) for a in args[:6]]
+        off = torch.zeros((512, 2), device=dev, requires_grad=True)
+        out = rasterize(*leaves, args[6], 128, 128, cfg,
+                        mean2d_ndc_offset=off)
+        (out.image * ct.to(dev)).sum().backward()
+        res.append([out.image.detach().cpu(), out.final_t.detach().cpu()]
+                   + [x.grad.cpu() for x in leaves + [off]])
+    (img, ft, *got), (img_c, ft_c, *want) = res
+    torch.testing.assert_close(img, img_c, atol=2e-4, rtol=0)
+    torch.testing.assert_close(ft, ft_c, atol=2e-5, rtol=0)
+    for g, w in zip(got, want):
+        assert float((g - w).abs().max()
+                     / w.abs().max().clamp_min(1e-30)) < 2e-4

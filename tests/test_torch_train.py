@@ -374,8 +374,7 @@ def _one_step_cfg(cfg):
     return cfg
 
 
-@pytest.fixture(scope="module")
-def one_step(scenes):
+def _one_step(scenes, jraster, traster):
     """One step of each package from the same state, on the same view,
     with JAX's draws; JAX's gradients come back as the optimizer state of
     an optax transformation that stores them, the port's stay in .grad
@@ -410,8 +409,7 @@ def one_step(scenes):
         lambda p: p, lambda g, s, p=None: (jax.tree.map(jnp.zeros_like, g), g))
     jstep = jt.make_train_step(
         (("msi", jt.build_scene_tensors_from_views(js.train_views), None, 0),),
-        jc, JConfig(binning_mode="fused", tile_cull=True, tile_capacity=2048,
-                    max_tiles_per_gaussian=64),
+        jc, jraster,
         jt.Phase(enable_sun=True, enable_random=True, learn_pose=True),
         store, store,
         spatial_lr_scale=js.cameras_extent)
@@ -436,7 +434,7 @@ def one_step(scenes):
     tstep = tt.make_train_step(
         (("msi", tt.build_scene_tensors_from_views(ts.train_views,
                                                    device="cpu"), None, 0),),
-        tc, RasterizeConfig(binning_mode="fused", tile_cull=True),
+        tc, traster,
         tt.Phase(enable_sun=True, enable_random=True, learn_pose=True), gopt,
         copt)
     tmetrics = tstep(model, shading, view, _t(bg), _t(shear),
@@ -445,7 +443,29 @@ def one_step(scenes):
                 tmetrics=tmetrics, params=params)
 
 
-def test_one_step_loss_terms(one_step):
+@pytest.fixture(scope="module")
+def one_step(scenes):
+    """The step on the fused route (K1/K2's plain versions here)."""
+    return _one_step(
+        scenes,
+        JConfig(binning_mode="fused", tile_cull=True, tile_capacity=2048,
+                max_tiles_per_gaussian=64),
+        RasterizeConfig(binning_mode="fused", tile_cull=True))
+
+
+# the CLI's fast route: sorted binning and the K4 blend, at capacities that
+# clip nothing in this scene
+FAST = dict(binning_mode="sorted", use_pallas=True, tile_capacity=512,
+            max_tiles_per_gaussian=64)
+
+
+@pytest.fixture(scope="module")
+def one_step_fast(scenes):
+    """The step on the fast route (K4's plain versions here)."""
+    return _one_step(scenes, JConfig(**FAST), RasterizeConfig(**FAST))
+
+
+def _check_loss_terms(one_step):
     jm, tm = one_step["jmetrics"], one_step["tmetrics"]
     terms = [k for k in tm if k.startswith("L") or k in (
         "loss", "L1", "photometric", "psnr", "grad_m2d_max")]
@@ -459,7 +479,18 @@ def test_one_step_loss_terms(one_step):
         assert float(tm[k]) == float(jm[k]), k
 
 
-def test_one_step_gaussian_gradients(one_step):
+def test_one_step_loss_terms(one_step):
+    _check_loss_terms(one_step)
+
+
+def test_one_step_fast_loss_terms(one_step_fast):
+    """The step on sorted + use_pallas against JAX's, at the fused step's
+    tolerances; nothing clipped."""
+    _check_loss_terms(one_step_fast)
+    assert float(one_step_fast["tmetrics"]["max_tile"]) < FAST["tile_capacity"]
+
+
+def _check_gaussian_gradients(one_step):
     new, model = one_step["new"], one_step["model"]
     for f in ("xyz", "features_dc", "scaling", "rotation", "opacity"):
         want = np.asarray(getattr(new.g_opt, f))
@@ -470,7 +501,15 @@ def test_one_step_gaussian_gradients(one_step):
         np.testing.assert_array_equal(getattr(model, f).detach().numpy(), x)
 
 
-def test_one_step_shading_gradients(one_step):
+def test_one_step_gaussian_gradients(one_step):
+    _check_gaussian_gradients(one_step)
+
+
+def test_one_step_fast_gaussian_gradients(one_step_fast):
+    _check_gaussian_gradients(one_step_fast)
+
+
+def _check_shading_gradients(one_step):
     new, shading = one_step["new"], one_step["shading"]
     assert np.abs(np.asarray(new.c_opt.last_row)).max() > 0
     for f in ("cc_weight", "cc_bias", "inshadow", "last_row", "exposure",
@@ -483,7 +522,15 @@ def test_one_step_shading_gradients(one_step):
             assert _rel(got, want) < 2e-4, f
 
 
-def test_one_step_densification_stats(one_step):
+def test_one_step_shading_gradients(one_step):
+    _check_shading_gradients(one_step)
+
+
+def test_one_step_fast_shading_gradients(one_step_fast):
+    _check_shading_gradients(one_step_fast)
+
+
+def _check_densification_stats(one_step):
     new, model = one_step["new"], one_step["model"]
     np.testing.assert_array_equal(model.denom.numpy(),
                                   np.asarray(new.aux.denom))
@@ -491,6 +538,14 @@ def test_one_step_densification_stats(one_step):
                                   np.asarray(new.aux.max_radii2d))
     assert _rel(model.xyz_gradient_accum.numpy(),
                 new.aux.xyz_gradient_accum) < 2e-4
+
+
+def test_one_step_densification_stats(one_step):
+    _check_densification_stats(one_step)
+
+
+def test_one_step_fast_densification_stats(one_step_fast):
+    _check_densification_stats(one_step_fast)
 
 
 def _trainer(scenes, iterations=4, **opt):

@@ -19,7 +19,8 @@ the dense routes were added, so that their times stay comparable):
      same with tile_cull, and a dense scene whose pixels saturate (the early
      exit runs) — channels 0-4 within atol 2e-4 and final_T within 2e-5
      (tests/test_golden.py's tolerances: pairs at the 1/255 and T_EPS
-     edges); plus a 128x128 fused render against the dense O(N*P) oracle
+     edges) and n_contrib (channel 6) exact; plus a 128x128 fused render
+     against the dense O(N*P) oracle
      (reference_rasterize), image and final_T within atol 5e-5;
   3. the serving path at full width: 1,000,000 seeded Gaussians on a
      synthetic heightfield, a 1024x1024 view with its sun model (the sun
@@ -32,7 +33,8 @@ the dense routes were added, so that their times stay comparable):
   4. K2 (csrc/fused_blend_bwd.cu) against fused_blend_bwd_plain on the same
      three scenes with a seeded random cotangent, per payload row max-abs
      error over the row's max-abs value <= 2e-4 (tests/test_golden.py's
-     gradient tolerance); plus every input's gradient of a 128x128 render
+     gradient tolerance), rows without gradient exactly 0, and two launches
+     bitwise equal; plus every input's gradient of a 128x128 render
      through the kernels against the plain versions on the CPU (same
      tolerance);
   5. the training path at full width: the synthetic scene of
@@ -44,9 +46,10 @@ the dense routes were added, so that their times stay comparable):
      tile_cull; 2 warm-up steps, then 10 timed steps, each ending in
      torch.cuda.synchronize(); K1 and K2 launches over the timed steps,
      peak memory, every metric finite, parameters moved, alive before and
-     after; one profiled step; K1 and K2 at the main render's exact inputs
-     of a step (captured from the step), with their times, the plain
-     versions' and their bounds;
+     after; one profiled step; K1 and K2 at each of the three renders'
+     exact inputs of a step (captured from the step; K1's out8 equal to the
+     step's), with their times, the plain versions' and their bounds, and
+     their sums over the step;
   6. K3 (the row-payload load of csrc/fused_blend_fwd.cu and
      fused_blend_bwd.cu) on the three 256x256 scenes: out8 equal to K1's
      and g_pay equal to K2's transposed, bit for bit, and within the
@@ -239,7 +242,8 @@ def compare_k1(sp, grid_x):
                max_abs_err_ch0_4=err_ch, max_abs_err_final_t=err_t,
                n_contrib_mismatches=int((k[..., 6] != p[..., 6]).sum()),
                saturated_pixel_share=float((k[..., 5] < 1e-2).float().mean()))
-    if not (err_ch <= ATOL_CH and err_t <= ATOL_T and torch.isfinite(k).all()):
+    if not (err_ch <= ATOL_CH and err_t <= ATOL_T
+            and rep["n_contrib_mismatches"] == 0 and torch.isfinite(k).all()):
         raise AssertionError(f"K1 disagrees with its plain version: {rep}")
     return rep, k
 
@@ -353,6 +357,7 @@ def compare_k2_at(sp, grid_x, out8, g_out8):
                                                   fused_blend_bwd_plain)
 
     k = fused_blend_bwd(sp.pay, sp.tstart, sp.cnt, out8, g_out8, grid_x)
+    k_again = fused_blend_bwd(sp.pay, sp.tstart, sp.cnt, out8, g_out8, grid_x)
     p = fused_blend_bwd_plain(sp.pay, sp.tstart, sp.cnt, out8, g_out8, grid_x)
     torch.cuda.synchronize()
     scale = p.abs().amax(dim=1)
@@ -361,8 +366,9 @@ def compare_k2_at(sp, grid_x, out8, g_out8):
     rep = dict(pairs=int(sp.pay.shape[1]),
                max_row_rel_err=float(err_rows[live].max()),
                max_abs_err=float((k - p).abs().max()),
-               rows_without_gradient=int((~live).sum()))
-    if not (rep["max_row_rel_err"] <= K2_ROW_TOL
+               rows_without_gradient=int((~live).sum()),
+               bitwise_deterministic=bool(torch.equal(k, k_again)))
+    if not (rep["max_row_rel_err"] <= K2_ROW_TOL and rep["bitwise_deterministic"]
             and bool((k[~live] == 0).all()) and bool(torch.isfinite(k).all())):
         raise AssertionError(f"K2 disagrees with its plain version: {rep}")
     return rep, k
@@ -411,7 +417,7 @@ def phase_build():
     from eogs2_tpu_torch.ops import cuda_build
 
     t0 = time.perf_counter()
-    names = cuda_build.build_all()
+    names = [b[0] for b in cuda_build.build_all()]
     for name in names:
         cuda_build.load(name)
     log(dict(phase="build", kernels=names,
@@ -529,6 +535,26 @@ def check_serve_outputs(out, nout, dsm, scene, width):
                 dsm_height_bounds=[lo, hi])
 
 
+def serve_renders(view, scene, width):
+    """The serving path's three fused renders: name -> (camera, width)."""
+    sun_cam, _ = view.sun_camera(f=2)
+    return {"view": (view, width), "sun": (sun_cam, 2 * width),
+            "nadir": (scene.test_views[0].camera, width)}
+
+
+def serve_render_inputs(model, cam, w):
+    """The exact inputs render_view_full or nadir_dsm hands K1 for cam."""
+    import torch
+
+    from eogs2_tpu_torch.renderer import gaussian_features
+
+    with torch.no_grad():
+        feats = gaussian_features(model, cam)
+        return sorted_inputs(model.xyz, model.get_scaling(), model.rotation,
+                             model.get_opacity(), feats,
+                             cam.resize_canvas(w, w).affine, w, w, eogs=True)
+
+
 def phase_serve(device, n=1_000_000, width=1024):
     import torch
 
@@ -536,7 +562,6 @@ def phase_serve(device, n=1_000_000, width=1024):
                                                   fused_blend_fwd_plain)
     from eogs2_tpu_torch.pipeline import nadir_dsm, render_view_full
     from eogs2_tpu_torch.rasterizer import RasterizeConfig
-    from eogs2_tpu_torch.renderer import gaussian_features
 
     t0 = time.perf_counter()
     model, view, scene, shading = serve_scene(n, width, seed=0, device=device)
@@ -582,19 +607,9 @@ def phase_serve(device, n=1_000_000, width=1024):
              **check_serve_outputs(out, nout, dsm, scene, width), **CARD))
 
     # ---- K1 at the three renders' exact inputs --------------------------
-    @torch.no_grad()
-    def render_inputs(cam, w):
-        feats = gaussian_features(model, cam)
-        return sorted_inputs(model.xyz, model.get_scaling(), model.rotation,
-                             model.get_opacity(), feats,
-                             cam.resize_canvas(w, w).affine, w, w, eogs=True)
-
-    sun_cam, _ = view.sun_camera(f=2)
-    renders = {"view": (view, width), "sun": (sun_cam, 2 * width),
-               "nadir": (scene.test_views[0].camera, width)}
     per_render = {}
-    for name, (cam, w) in renders.items():
-        sp = render_inputs(cam, w)
+    for name, (cam, w) in serve_renders(view, scene, width).items():
+        sp = serve_render_inputs(model, cam, w)
         rep, k = compare_k1(sp, w // 16)
         gx = w // 16
         rep["ms"] = time_cuda(
@@ -729,6 +744,9 @@ def train_recipe(iterations):
     return cfg
 
 
+TRAIN_RENDERS = ("main", "sun", "random")  # the order a step renders them
+
+
 def phase_train(device, scene, scene_s, width=1024, warmup=2, timed=10):
     import torch
 
@@ -798,30 +816,46 @@ def phase_train(device, scene, scene_s, width=1024, warmup=2, timed=10):
     log(dict(phase="train_profile",
              **profile_run(lambda: tr.train_step(warmup + timed + 1)), **CARD))
 
-    # K1 and K2 at the main render's exact inputs of one step
+    # K1 and K2 at each render's exact inputs of one step
     with capture_blend_calls() as cap:
         tr.train_step(warmup + timed + 2)
         torch.cuda.synchronize()
-    main_ptr = cap.fwd_pays[0].data_ptr()  # the main view renders first
-    pay, tstart, cnt, out8, g_out8, gx = next(
-        c for c in cap.bwd_calls if c[0].data_ptr() == main_ptr)
-    del cap
-    sp = SortedPairs(pay, tstart, cnt, None)
-    rep, _ = compare_k2_at(sp, gx, out8, g_out8)
-    rep["ms"] = time_cuda(
-        lambda: fused_blend_bwd(pay, tstart, cnt, out8, g_out8, gx), 10)
-    rep["plain_ms"] = time_cuda(
-        lambda: fused_blend_bwd_plain(pay, tstart, cnt, out8, g_out8, gx), 1)
-    rep.update(k2_bound(sp, gx, out8))
-    k1 = dict(ms=time_cuda(lambda: fused_blend_fwd(pay, tstart, cnt, gx), 10),
-              plain_ms=time_cuda(
-                  lambda: fused_blend_fwd_plain(pay, tstart, cnt, gx), 1),
-              **k1_bound(sp, gx))
-    log(dict(phase="k2_at_train_shape", render="main", width=width,
-             height=width, max_tile_count=int(cnt.max()), **rep,
-             k1_at_same_render=k1, **CARD))
-    captured = (pay, tstart, cnt, out8, g_out8, gx)
-    return rep, k1, k1_launches, k2_launches, captured, tr
+    bwd = {c[0].data_ptr(): c for c in cap.bwd_calls}
+    calls = [bwd[p.data_ptr()] for p in cap.fwd_pays]
+    del cap, bwd
+    if len(calls) != 3:
+        raise AssertionError(f"captured {len(calls)} fused renders, want 3")
+    k1_at, k2_at = {}, {}
+    for name, (pay, tstart, cnt, out8, g_out8, gx) in zip(TRAIN_RENDERS,
+                                                           calls):
+        sp = SortedPairs(pay, tstart, cnt, None)
+        k1, k1_out8 = compare_k1(sp, gx)
+        k1["equals_step_out8"] = bool(torch.equal(k1_out8, out8))
+        if not k1["equals_step_out8"]:
+            raise AssertionError(f"K1 at the {name} render differs from the "
+                                 f"step's own out8")
+        k1.update(ms=time_cuda(
+            lambda: fused_blend_fwd(pay, tstart, cnt, gx), 10),
+            plain_ms=time_cuda(
+                lambda: fused_blend_fwd_plain(pay, tstart, cnt, gx), 1),
+            **k1_bound(sp, gx))
+        k2, _ = compare_k2_at(sp, gx, out8, g_out8)
+        k2.update(ms=time_cuda(
+            lambda: fused_blend_bwd(pay, tstart, cnt, out8, g_out8, gx), 10),
+            plain_ms=time_cuda(
+                lambda: fused_blend_bwd_plain(pay, tstart, cnt, out8, g_out8,
+                                              gx), 1),
+            **k2_bound(sp, gx, out8))
+        log(dict(phase="k1_k2_at_train_shape", render=name, width=16 * gx,
+                 height=16 * (tstart.shape[0] // gx),
+                 max_tile_count=int(cnt.max()), k1=k1, k2=k2, **CARD))
+        k1_at[name], k2_at[name] = k1, k2
+        del sp, k1_out8
+    log(dict(phase="k1_k2_per_step", renders=list(TRAIN_RENDERS),
+             **{f"{k}_{key}": sum(r[key] for r in at.values())
+                for k, at in (("k1", k1_at), ("k2", k2_at))
+                for key in ("ms", "bound_ms", "plain_ms")}, **CARD))
+    return k2_at, k1_at, k1_launches, k2_launches, calls[0], tr
 
 
 # ----------------------------------------------------------------------------
@@ -1571,10 +1605,11 @@ def main() -> int:
     k2_small_err = phase_k2_small(device)
     per_render, serve_launches = phase_serve(device)
     scene, scene_s = train_scene(device)
-    k2, k1_train, k1_launches, k2_launches, captured, tr = phase_train(
+    k2_at, k1_at, k1_launches, k2_launches, captured, tr = phase_train(
         device, scene, scene_s)
+    k2 = k2_at["main"]
     k3, k3_fwd, k3_bwd, k3_launches = phase_k3_at_train_shape(
-        device, captured, tr, k1_train, k2)
+        device, captured, tr, k1_at["main"], k2)
     del captured, tr
     gc.collect()  # the trainer's reference cycles hold device memory
     k3_small_err = phase_k3_small(device)
@@ -1596,16 +1631,28 @@ def main() -> int:
                     bound_ms=at["bound_ms"], bound_by=at["bound_by"],
                     library_ms=None)
 
+    def per_step(at):  # a training step's three renders
+        return dict(train_step_ms={k: r["ms"] for k, r in at.items()},
+                    train_step_bound_ms={k: r["bound_ms"]
+                                         for k, r in at.items()})
+
     log({"kernels": [
         entry("fused_blend_fwd (K1)", "fused_blend_fwd.cu",
               "fused_raster.py:532", serve_launches + k1_launches, view,
               max_abs_err=max(max(r["max_abs_err_ch0_4"],
                                   r["max_abs_err_final_t"])
-                              for r in per_render.values())),
+                              for r in (*per_render.values(),
+                                        *k1_at.values())),
+              n_contrib_mismatches=sum(r["n_contrib_mismatches"]
+                                       for r in (*per_render.values(),
+                                                 *k1_at.values())),
+              **per_step(k1_at)),
         entry("fused_blend_bwd (K2)", "fused_blend_bwd.cu",
               "fused_raster.py:614", k2_launches, k2,
-              max_abs_err=k2["max_abs_err"],
-              max_row_rel_err=max(k2["max_row_rel_err"], k2_small_err)),
+              max_abs_err=max(r["max_abs_err"] for r in k2_at.values()),
+              max_row_rel_err=max(k2_small_err, *(r["max_row_rel_err"]
+                                                  for r in k2_at.values())),
+              **per_step(k2_at)),
         entry("fused_blend_fwd_rows (K3 forward)", "fused_blend_fwd.cu",
               "fused_raster.py:236", k3_launches["k3_fwd"], k3_fwd,
               max_abs_err=max(k3["max_abs_err_ch0_4"],

@@ -1,17 +1,40 @@
 // What the port's blend kernels (K1-K4) share: the tile shape, the skip and
 // stop constants of the CUDA reference's renderCUDA (forward.cu), and the
-// staging of one fused-route pair into shared memory in either payload
-// layout. ops/cuda_build.py hashes this header with every source that
-// includes it, so an edit here rebuilds them all.
+// staging of fused-route pairs into shared memory in either payload layout.
+// ops/cuda_build.py hashes this header with every source that includes it,
+// so an edit here rebuilds them all.
 
 #pragma once
 
+#include <cuda_pipeline.h>
 #include <cuda_runtime.h>
+#include <math_constants.h>
+
+// the plain versions compare float32 tensors with Python doubles, which
+// torch rounds to float32 once: round the same doubles here
+#define ALPHA_EPS ((float)(1.0 / 255.0))
+#define ALPHA_MAX ((float)0.99)
+#define T_EPS ((float)1e-4)
+#define POWER_TOL ((float)1e-4)
+
+// 1: K1 and K2 skip the exp of a pixel whose power lies below its pair's
+// alpha cut (see alpha_cut); 0: every pixel takes the exp (a variant kept
+// for measurement, scripts/fused_blend_ab.py).
+#ifndef EOGS2_ALPHA_CUT
+#define EOGS2_ALPHA_CUT 1
+#endif
+
+// 1: each warp of K1 and K2 covers a square-ish block of the tile (8 x 8
+// pixels at two pixels per thread); 0: whole rows (a variant kept for
+// measurement, scripts/fused_blend_ab.py).
+#ifndef EOGS2_PIXEL_BLOCKS
+#define EOGS2_PIXEL_BLOCKS 1
+#endif
 
 namespace eogs2 {
 
 constexpr int TILE = 16;
-constexpr int PIX = TILE * TILE;  // threads per block, one per pixel
+constexpr int PIX = TILE * TILE;  // pixels per tile (K4: threads per block)
 constexpr int NC = 5;             // feature channels
 constexpr int NWARP = PIX / 32;
 constexpr unsigned FULL = 0xffffffffu;
@@ -21,43 +44,116 @@ constexpr unsigned FULL = 0xffffffffu;
 constexpr int NF = 11;
 constexpr int NFR = 16;
 
-// Stage pair p of a fused-route payload into column `slot` of batch[NF][PIX].
-// Column layout (K1, K2): field f of pair p at pay[f * stride + p].
-// Row layout (K3): pair p is the 16 floats at pay[p * 16], fields 0-10 used.
+// A fused-route pair as K1 and K2 stage it in shared memory: three 16-byte
+// rows, each read by all threads at once (a broadcast LDS.128). r0 and r1
+// feed the keep test, r1.w and r2 the composite.
+//   r0 = (mx, my, conic a, conic b)
+//   r1 = (conic c, alpha cut, opacity, f0)
+//   r2 = (f1, f2, f3, f4)
+struct __align__(16) Pair {
+  float4 r0, r1, r2;
+};
+
+constexpr int BATCH = 256;  // pairs per staged batch
+
+// The power below which op * exp(power) < ALPHA_EPS for certain, so the keep
+// test fails: log(ALPHA_EPS / op) less a margin of 1e-3 in log space, a
+// thousand times the few-ulp error of logf, expf and the product. Skipping
+// such a pixel (no exp) is therefore exact: the same pixels are kept, with
+// the same bits. Opacity 0 gives +inf (alpha is 0: every pixel skips); a
+// negative or NaN opacity gives NaN, which skips none.
+__device__ __forceinline__ float alpha_cut(float op) {
+  return EOGS2_ALPHA_CUT ? logf(ALPHA_EPS / op) - 1e-3f : -CUDART_INF_F;
+}
+
+// Start the asynchronous copy (cp.async) of pair p into s, in the payload's
+// field order: r0 = fields 0-3, r1 = fields 4-7, r2 = fields 8-11.
+// Column layout (K1, K2): field f of pair p at pay[f * stride + p], eleven
+// 4-byte copies. Row layout (K3): the 16 floats at pay[p * 16], three
+// 16-byte copies (field 11 is zero).
 template <bool ROWS>
-__device__ __forceinline__ void stage_pair(float (*batch)[PIX], int slot,
-                                           const float* __restrict__ pay,
-                                           long long stride, long long p) {
+__device__ __forceinline__ void copy_pair_async(Pair* s,
+                                                const float* __restrict__ pay,
+                                                long long stride, long long p) {
   if (ROWS) {
-    const float4* src = reinterpret_cast<const float4*>(pay + p * NFR);
-    const float4 r0 = src[0], r1 = src[1], r2 = src[2];
-    batch[0][slot] = r0.x;
-    batch[1][slot] = r0.y;
-    batch[2][slot] = r0.z;
-    batch[3][slot] = r0.w;
-    batch[4][slot] = r1.x;
-    batch[5][slot] = r1.y;
-    batch[6][slot] = r1.z;
-    batch[7][slot] = r1.w;
-    batch[8][slot] = r2.x;
-    batch[9][slot] = r2.y;
-    batch[10][slot] = r2.z;
+    const float* src = pay + p * NFR;
+    __pipeline_memcpy_async(&s->r0, src, 16);
+    __pipeline_memcpy_async(&s->r1, src + 4, 16);
+    __pipeline_memcpy_async(&s->r2, src + 8, 16);
   } else {
-    const float* src = pay + p;
+    float* dst = &s->r0.x;
 #pragma unroll
-    for (int f = 0; f < NF; ++f) batch[f][slot] = src[(long long)f * stride];
+    for (int f = 0; f < NF; ++f)
+      __pipeline_memcpy_async(dst + f, pay + (long long)f * stride + p, 4);
   }
 }
 
-// The largest v over the block's PIX threads (every thread must call it);
-// smem holds NWARP ints and may be reused once it returns.
+// Copy pairs [base, min(base + BATCH, n)) of a tile whose range starts at
+// `start` into buf: thread t copies slots t, t + NT, ... and commits one
+// cp.async group.
+template <bool ROWS, int NT>
+__device__ __forceinline__ void stage_batch(Pair* buf,
+                                            const float* __restrict__ pay,
+                                            long long stride, long long start,
+                                            int base, int n) {
+#pragma unroll
+  for (int i = 0; i < BATCH / NT; ++i) {
+    const int k = threadIdx.x + i * NT;
+    if (base + k < n)
+      copy_pair_async<ROWS>(buf + k, pay, stride, start + base + k);
+  }
+  __pipeline_commit();
+}
+
+// Wait for this thread's copies of the batch and rearrange its slots from
+// the payload's field order into Pair's (adding the alpha cut). A barrier
+// must follow before other threads read the batch.
+template <int NT>
+__device__ __forceinline__ void finish_batch(Pair* buf, int base, int n) {
+  __pipeline_wait_prior(0);
+#pragma unroll
+  for (int i = 0; i < BATCH / NT; ++i) {
+    const int k = threadIdx.x + i * NT;
+    if (base + k < n) {
+      const float4 r1 = buf[k].r1, r2 = buf[k].r2;  // (c, op, f0, f1), (f2..f4, -)
+      buf[k].r1 = make_float4(r1.x, alpha_cut(r1.y), r1.y, r1.z);
+      buf[k].r2 = make_float4(r1.w, r2.x, r2.y, r2.z);
+    }
+  }
+}
+
+// The tile-local (x, y) of thread t's first pixel; its PPT pixels are (x + i,
+// y). With pixel blocks a warp covers a block 8 pixels wide (16 at PPT 4) and
+// 32 * PPT / 8 rows high, so that fewer warps meet a small Gaussian; else
+// PPT * 32 consecutive pixels of whole rows.
+template <int PPT>
+__device__ __forceinline__ int2 thread_pixel(int t) {
+  constexpr int WB = (EOGS2_PIXEL_BLOCKS && PPT < 4) ? 8 : TILE;
+  constexpr int HB = 32 * PPT / WB;
+  constexpr int PER_ROW = WB / PPT;  // lanes per block row
+  const int lane = t & 31, warp = t >> 5;
+  return make_int2((warp % (TILE / WB)) * WB + (lane % PER_ROW) * PPT,
+                   (warp / (TILE / WB)) * HB + lane / PER_ROW);
+}
+
+// The power of a pair at a pixel, rounded as the plain versions round it:
+// -0.5 (a dx^2 + c dy^2) - b dx dy, with c dy^2 passed in (a pixel row
+// shares it).
+__device__ __forceinline__ float pair_power(float4 r0, float cdy2, float dx,
+                                            float dy) {
+  return -0.5f * (r0.z * dx * dx + cdy2) - r0.w * dx * dy;
+}
+
+// The largest v over the block's NT threads (every thread must call it);
+// smem holds NT / 32 ints and may be reused once it returns.
+template <int NT = PIX>
 __device__ __forceinline__ int block_max(int v, int* smem) {
   v = __reduce_max_sync(FULL, v);
   if ((threadIdx.x & 31) == 0) smem[threadIdx.x >> 5] = v;
   __syncthreads();
   int m = smem[0];
 #pragma unroll
-  for (int w = 1; w < NWARP; ++w) m = max(m, smem[w]);
+  for (int w = 1; w < NT / 32; ++w) m = max(m, smem[w]);
   __syncthreads();
   return m;
 }
@@ -74,10 +170,3 @@ __device__ __forceinline__ int slots_in_use(const float* __restrict__ mask,
 }
 
 }  // namespace eogs2
-
-// the plain versions compare float32 tensors with Python doubles, which
-// torch rounds to float32 once: round the same doubles here
-#define ALPHA_EPS ((float)(1.0 / 255.0))
-#define ALPHA_MAX ((float)0.99)
-#define T_EPS ((float)1e-4)
-#define POWER_TOL ((float)1e-4)

@@ -14,24 +14,27 @@
 //     prefix += w fdot,          suffix = total - prefix
 //     g_alpha = fdot T_before - (suffix + final_T g_ft) / (1 - alpha)
 //     gG      = g_alpha op G,    G = exp(min(power, 0))
-//     g_mx = -gG (a dx + b dy)   g_my = -gG (c dy + b dx)
-//     g_a  = -gG dx^2 / 2        g_b  = -gG dx dy       g_c = -gG dy^2 / 2
-//     g_op = g_alpha G           g_f_c = w g_pix_c
-// and each is summed over the tile's 256 pixels. There is no derivative
-// through the 0.99 alpha clamp, and the gradient flows through min(power, 0)
-// as if it were power (also for power in (0, 1e-4]), as JAX's basis
-// expansion does.
+//   and per pair, summed over the tile's 256 pixels:
+//     g_mx = -(a S_x + b S_y)    g_my = -(c S_y + b S_x)
+//     g_a  = -S_xx / 2           g_b  = -S_xy           g_c = -S_yy / 2
+//     g_op = sum g_alpha G       g_f_c = sum w g_pix_c
+//   with S_x = sum gG dx, S_y = sum gG dy, S_xx = sum gG dx^2, S_xy =
+//   sum gG dx dy, S_yy = sum gG dy^2 (the conic enters after the sum, once
+//   per pair). There is no derivative through the 0.99 alpha clamp, and the
+//   gradient flows through min(power, 0) as if it were power (also for
+//   power in (0, 1e-4]), as JAX's basis expansion does.
 //
 // Front to back with suffix = total - prefix, not the CUDA reference's
 // back-to-front division by (1 - alpha): the walk repeats K1's products
-// exactly (T *= 1 - alpha over the same kept pairs in the same order), so
-// every keep, live and stop decision is K1's.
+// exactly (T *= 1 - alpha over the same kept pairs in the same order, the
+// same alpha cut), so every keep, live and stop decision is K1's.
 //
 // Walk length: each pixel walks up to its own n_contrib (out8 channel 6, the
 // 1-based position of its last composited pair); pairs past it carry no
 // gradient for that pixel, and the pair at which it stopped (test_T < 1e-4)
-// gets none, as in JAX (live is false there). The block walks up to its
-// deepest pixel's bound and writes zeros to the rows past it.
+// gets none, as in JAX (live is false there). A warp walks up to its deepest
+// pixel's bound, the block up to its deepest warp's, and the block writes
+// zeros to the rows past it.
 //
 // Inputs: pay (the sorted payload K1 or K3 read), tstart, cnt [T] i32,
 // out8 [T, 256, 8] (the forward's output), gout8 [T, 256, 8] (the
@@ -40,182 +43,310 @@
 // written: K2 takes and writes the column layout [11, stride] f32; K3
 // (replacing eogs2_tpu/ops/fused_raster.py:_bwd_kernel, the wide layout)
 // the row layout [P, 16] f32, one 64-byte row per pair with fields 11-15
-// zero. Only the loads and stores differ, so K3's gpay is K2's transposed,
-// bit for bit.
-//
-// Design: one CTA of 256 threads per tile, one thread per pixel, batches of
-// 256 pairs staged in shared memory as in K1. Each thread computes its 11
-// contributions to a pair; a warp-shuffle butterfly sums them over the
-// warp's 32 pixels, lane 0 stores the warp's partials in shared memory, and
-// after every 32 pairs the block adds the 8 warp partials in a fixed order
-// and writes the 32 rows, coalesced. A warp whose pixels all contribute
-// nothing to a pair skips its shuffles (its partial is 0). No atomics: every
-// pair row belongs to exactly one tile, so the output is deterministic.
+// zero. Only the copies in and the stores out differ, so K3's gpay is K2's
+// transposed, bit for bit.
 //
 // Bound on this card: the payload is read once (44 B/pair) up to each
 // tile's walk, g_pay written once (44 B/pair), out8 and gout8 read once
 // (8 KB/tile each): a few hundred MB at 1M Gaussians, well under a
-// millisecond at 3.35 TB/s. The work is the forward's recomputation per
-// pair-pixel evaluation plus ~60 FP32 operations per contributing
-// pair-pixel, and the 11 per-pair sums over 256 pixels, so FP32 issue rate
-// bounds it.
+// millisecond at 3.35 TB/s. The work (chip_smoke.py:k2_bound) is the
+// forward's 17 FP32 operations per pair-pixel evaluation and 58 per
+// contribution, so instruction issue bounds it. Summing 11 values over 256
+// pixels for every pair is what set the pace of a thread-per-pixel design
+// (five shuffles and five adds per value per warp), and the design cuts it:
+//
+//   * One CTA of 128 threads per tile, PPT = 2 horizontally adjacent pixels
+//     per thread, each warp an 8 x 8 block of the tile: a thread adds its
+//     pixels' contributions in registers first, so a tile's shuffles per
+//     pair fall with its warps, and fewer warps meet a small Gaussian.
+//   * A reduce-scatter butterfly: at the shuffle of offset o a lane keeps
+//     half of its values (chosen by lane bit o) and sends the other half,
+//     so the 11 values (padded to 16) take 8 + 4 + 2 + 1 + 1 = 16 shuffles
+//     instead of 55, and each field's warp sum lands on its own pair of
+//     lanes, which store it at once. A warp in which no pixel contributes
+//     to a pair skips the exchange and leaves the pair unmarked in a bit
+//     mask; the block then adds the marked warps' partials in a fixed
+//     order, after every 32 pairs, and writes the 32 rows coalesced.
+//   * Explicit fused multiply-adds (__fmaf_rn) and __fdividef in the
+//     gradient arithmetic only (fdot, prefix, g_alpha, the sums); the
+//     recomputation that decides keep and stop is K1's, unfused.
+//   * Pairs are staged as K1 stages them (16-byte rows with their alpha
+//     cut, batches of 256 double-buffered by cp.async), and the walk takes
+//     U = 4 pairs at a time as K1's does: the cheap half of the keep test
+//     for all of them, then the contributions of the pixels that passed, in
+//     pair order, and a warp none of whose pixels passed skips the four.
+// No atomics: every pair row belongs to exactly one tile and every sum runs
+// in a fixed order, so the output is bitwise identical launch to launch.
+// scripts/fused_blend_ab.py times this design against the parent's kernel
+// and against its variants (the EOGS2_* definitions below); PERF.md
+// section 6 has the numbers.
 //
 // Built with -fmad=false (ops/cuda_build.py) and the accurate expf, like
 // K1: the recomputed alpha, T and keep/stop decisions match K1 bit for bit.
 
 #include "blend_common.cuh"
 
+// variants for measurement (scripts/fused_blend_ab.py); the defaults are the
+// design above. EOGS2_BWD_PPT: pixels per thread (1, 2 or 4);
+// EOGS2_BWD_U: pairs whose cheap test runs at once (1, 2, 4 or 8; it must
+// divide SUB); EOGS2_BWD_SCATTER 0: eleven full butterflies, lane 0
+// storing the sums;
+// EOGS2_BWD_FMA 0: no explicit fused multiply-adds, true division.
+#ifndef EOGS2_BWD_PPT
+#define EOGS2_BWD_PPT 2
+#endif
+#ifndef EOGS2_BWD_U
+#define EOGS2_BWD_U 4
+#endif
+#ifndef EOGS2_BWD_SCATTER
+#define EOGS2_BWD_SCATTER 1
+#endif
+#ifndef EOGS2_BWD_FMA
+#define EOGS2_BWD_FMA 1
+#endif
+
 namespace {
 
 using namespace eogs2;
 
-constexpr int SUB = 32;  // pairs per block-level reduction round
+constexpr int SUB = 32;  // pairs per block-level reduction round (a mask)
+constexpr int NV = 16;   // the 11 per-pair sums padded for the reduce-scatter
 
-template <bool ROWS>
-__global__ void __launch_bounds__(PIX)
+__device__ __forceinline__ float fma_g(float a, float b, float c) {
+  return EOGS2_BWD_FMA ? __fmaf_rn(a, b, c) : a * b + c;
+}
+
+__device__ __forceinline__ float div_g(float a, float b) {
+  return EOGS2_BWD_FMA ? __fdividef(a, b) : a / b;
+}
+
+// One step of recursive halving: lanes l and l ^ 2H swap halves of v[0, 2H)
+// so that each keeps the sum of one half, selected by its lane bit 2H. H is
+// a template parameter so that every index is a constant and v stays in
+// registers.
+template <int H>
+__device__ __forceinline__ void halve(float (&v)[NV], int lane) {
+  const bool upper = lane & (2 * H);
+#pragma unroll
+  for (int i = 0; i < H; ++i) {
+    const float send = upper ? v[i] : v[i + H];
+    const float keep = upper ? v[i + H] : v[i];
+    v[i] = keep + __shfl_xor_sync(FULL, send, 2 * H);
+  }
+}
+
+// The warp sum of field (lane >> 1) of v, on every lane: 16 shuffles.
+// v is clobbered.
+__device__ __forceinline__ float warp_reduce_scatter(float (&v)[NV], int lane) {
+  halve<8>(v, lane);
+  halve<4>(v, lane);
+  halve<2>(v, lane);
+  halve<1>(v, lane);
+  return v[0] + __shfl_xor_sync(FULL, v[0], 1);
+}
+
+template <bool ROWS, int PPT, int U>
+__global__ void __launch_bounds__(PIX / PPT)
 fused_blend_bwd_kernel(const float* __restrict__ pay, long long stride,
                        const int* __restrict__ tstart,
                        const int* __restrict__ cnt, int grid_x,
                        const float* __restrict__ out8,
                        const float* __restrict__ gout8,
                        float* __restrict__ gpay) {
-  __shared__ float batch[NF][PIX];
-  // the row layout's store reads part across f: pad it against bank
-  // conflicts (the column layout reads it along jj and needs no pad)
-  __shared__ float part[NWARP][NF][ROWS ? SUB + 1 : SUB];
-  __shared__ int warp_walk[NWARP];
+  constexpr int NT = PIX / PPT;
+  constexpr int NW = NT / 32;
+  __shared__ Pair batch[2][BATCH];
+  // per warp and pair of a round, the warp's 11 sums; +1 against bank
+  // conflicts (the scatter stores 11 fields of one pair at once)
+  __shared__ float part[NW][NF][SUB + 1];
+  __shared__ unsigned wmask[NW];  // pairs of the round the warp summed
+  __shared__ int red[NW];
   const int tile = blockIdx.x;
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const float px = (float)((tile % grid_x) * TILE + tid % TILE);
-  const float py = (float)((tile / grid_x) * TILE + tid / TILE);
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int2 lp = thread_pixel<PPT>(threadIdx.x);
+  const int pix0 = lp.y * TILE + lp.x;  // this thread's first pixel in the tile
+  const float px0 = (float)((tile % grid_x) * TILE + lp.x);
+  const float py = (float)((tile / grid_x) * TILE + lp.y);
   const long long start = tstart[tile];
   const int n = cnt[tile];
 
-  const long long pix = ((long long)tile * PIX + tid) * 8;
-  const float4 o0 = *reinterpret_cast<const float4*>(out8 + pix);
-  const float4 o1 = *reinterpret_cast<const float4*>(out8 + pix + 4);
-  const float4 q0 = *reinterpret_cast<const float4*>(gout8 + pix);
-  const float4 q1 = *reinterpret_cast<const float4*>(gout8 + pix + 4);
-  const float gpix[NC] = {q0.x, q0.y, q0.z, q0.w, q1.x};
-  const float total = o0.x * gpix[0] + o0.y * gpix[1] + o0.z * gpix[2] +
-                      o0.w * gpix[3] + o1.x * gpix[4];
-  const float tail = o1.y * q1.y;  // final_T * g_ft
-  const int last = (int)o1.z;      // this pixel's walk bound (n_contrib)
-
-  // the block walks up to its deepest pixel's bound
-  const int wmax = __reduce_max_sync(FULL, last);
-  if (lane == 0) warp_walk[warp] = wmax;
-  __syncthreads();
-  int n_walk = 0;
+  float gpix[PPT][NC], total[PPT], tail[PPT], T[PPT], prefix[PPT];
+  int last[PPT];
+  int walk = 0;  // this thread's walk bound
 #pragma unroll
-  for (int w = 0; w < NWARP; ++w) n_walk = max(n_walk, warp_walk[w]);
-  n_walk = min(n_walk, n);
+  for (int i = 0; i < PPT; ++i) {
+    const long long px = ((long long)tile * PIX + pix0 + i) * 8;
+    const float4 o0 = *reinterpret_cast<const float4*>(out8 + px);
+    const float4 o1 = *reinterpret_cast<const float4*>(out8 + px + 4);
+    const float4 q0 = *reinterpret_cast<const float4*>(gout8 + px);
+    const float4 q1 = *reinterpret_cast<const float4*>(gout8 + px + 4);
+    gpix[i][0] = q0.x;
+    gpix[i][1] = q0.y;
+    gpix[i][2] = q0.z;
+    gpix[i][3] = q0.w;
+    gpix[i][4] = q1.x;
+    total[i] = o0.x * q0.x + o0.y * q0.y + o0.z * q0.z + o0.w * q0.w +
+               o1.x * q1.x;
+    tail[i] = o1.y * q1.y;  // final_T * g_ft
+    last[i] = (int)o1.z;    // this pixel's walk bound (n_contrib)
+    T[i] = 1.0f;
+    prefix[i] = 0.0f;
+    walk = max(walk, last[i]);
+  }
+  const int n_walk = min(block_max<NT>(walk, red), n);
+  const int warp_walk = __reduce_max_sync(FULL, walk);
 
-  float T = 1.0f;
-  float prefix = 0.0f;
-  for (int base = 0; base < n_walk; base += PIX) {
-    __syncthreads();  // every thread is done with the previous batch
-    const int k = base + tid;
-    if (k < n_walk) stage_pair<ROWS>(batch, tid, pay, stride, start + k);
-    __syncthreads();
-    const int m = min(PIX, n_walk - base);
+  if (n_walk > 0) stage_batch<ROWS, NT>(batch[0], pay, stride, start, 0, n_walk);
+  for (int base = 0, buf = 0; base < n_walk; base += BATCH, buf ^= 1) {
+    finish_batch<NT>(batch[buf], base, n_walk);
+    __syncthreads();  // the batch has landed; the other buffer is free
+    if (base + BATCH < n_walk)
+      stage_batch<ROWS, NT>(batch[buf ^ 1], pay, stride, start, base + BATCH,
+                            n_walk);
+    const int m = min(BATCH, n_walk - base);
     for (int s0 = 0; s0 < m; s0 += SUB) {
       const int ms = min(SUB, m - s0);
-      for (int jj = 0; jj < ms; ++jj) {
-        const int j = s0 + jj;
-        float v[NF];
+      const int mw = min(ms, warp_walk - base - s0);  // warp-uniform
+      unsigned mask = 0;
+      for (int j0 = 0; j0 < mw; j0 += U) {
+        // the cheap half of the keep test for U pairs at once (the walk
+        // bound, power against the tolerance and the cut): U x PPT
+        // independent chains; pairs past mw are masked
+        unsigned pass = 0;
 #pragma unroll
-        for (int f = 0; f < NF; ++f) v[f] = 0.0f;
-        bool contrib = false;
-        if (base + j < last) {
-          const float a = batch[2][j], b = batch[3][j], c = batch[4][j];
-          const float op = batch[5][j];
-          const float dx = batch[0][j] - px;
-          const float dy = batch[1][j] - py;
-          const float power = -0.5f * (a * dx * dx + c * dy * dy) - b * dx * dy;
-          if (power <= POWER_TOL) {
+        for (int u = 0; u < U; ++u) {
+          const int j = s0 + j0 + u;
+          const float4 r0 = batch[buf][j].r0;
+          const float4 r1 = batch[buf][j].r1;
+          const float dy = r0.y - py;
+          const float cdy2 = r1.x * dy * dy;
+#pragma unroll
+          for (int i = 0; i < PPT; ++i) {
+            const float power =
+                pair_power(r0, cdy2, r0.x - (px0 + (float)i), dy);
+            if (power <= POWER_TOL && !(power < r1.y) && j0 + u < mw &&
+                base + j < last[i])
+              pass |= 1u << (u * PPT + i);
+          }
+        }
+        if (!__any_sync(FULL, pass)) continue;  // the warp's sums are 0
+#pragma unroll
+        for (int u = 0; u < U; ++u) {
+          const unsigned mine = pass >> (u * PPT) & ((1u << PPT) - 1u);
+          if (!__any_sync(FULL, mine)) continue;
+          const int jj = j0 + u;
+          const Pair* q = &batch[buf][s0 + jj];
+          const float4 r0 = q->r0, r1 = q->r1, r2 = q->r2;
+          const float dy = r0.y - py;
+          const float cdy2 = r1.x * dy * dy;
+          float v[NV];
+#pragma unroll
+          for (int f = 0; f < NV; ++f) v[f] = 0.0f;
+          bool contrib = false;
+#pragma unroll
+          for (int i = 0; i < PPT; ++i) {
+            if (!(mine >> i & 1u)) continue;
+            const float dx = r0.x - (px0 + (float)i);
+            const float power = pair_power(r0, cdy2, dx, dy);
             const float G = expf(fminf(power, 0.0f));
-            const float alpha = fminf(ALPHA_MAX, op * G);
-            if (alpha >= ALPHA_EPS) {
-              const float one_minus = 1.0f - alpha;
-              const float test_T = T * one_minus;
-              if (test_T >= T_EPS) {
-                const float w = alpha * T;
-                float fdot = gpix[0] * batch[6][j];
+            const float opG = r1.z * G;
+            const float alpha = fminf(ALPHA_MAX, opG);
+            if (alpha < ALPHA_EPS) continue;
+            const float one_minus = 1.0f - alpha;
+            const float test_T = T[i] * one_minus;
+            if (test_T < T_EPS) continue;
+            const float w = alpha * T[i];
+            float fdot = gpix[i][0] * r1.w;
+            fdot = fma_g(gpix[i][1], r2.x, fdot);
+            fdot = fma_g(gpix[i][2], r2.y, fdot);
+            fdot = fma_g(gpix[i][3], r2.z, fdot);
+            fdot = fma_g(gpix[i][4], r2.w, fdot);
+            prefix[i] = fma_g(w, fdot, prefix[i]);
+            const float suffix = total[i] - prefix[i];
+            const float g_alpha =
+                fma_g(fdot, T[i], -div_g(suffix + tail[i], one_minus));
+            const float gG = g_alpha * opG;
+            const float gdx = gG * dx, gdy = gG * dy;
+            v[0] += gdx;
+            v[1] += gdy;
+            v[2] = fma_g(gdx, dx, v[2]);
+            v[3] = fma_g(gdx, dy, v[3]);
+            v[4] = fma_g(gdy, dy, v[4]);
+            v[5] = fma_g(g_alpha, G, v[5]);
 #pragma unroll
-                for (int cc = 1; cc < NC; ++cc) fdot += gpix[cc] * batch[6 + cc][j];
-                prefix += w * fdot;
-                const float suffix = total - prefix;
-                const float g_alpha = fdot * T - (suffix + tail) / one_minus;
-                const float gG = g_alpha * (op * G);
-                v[0] = -(gG * (a * dx + b * dy));
-                v[1] = -(gG * (c * dy + b * dx));
-                v[2] = -0.5f * gG * dx * dx;
-                v[3] = -gG * dx * dy;
-                v[4] = -0.5f * gG * dy * dy;
-                v[5] = g_alpha * G;
+            for (int c = 0; c < NC; ++c)
+              v[6 + c] = fma_g(w, gpix[i][c], v[6 + c]);
+            T[i] = test_T;
+            contrib = true;
+          }
+          if (!__any_sync(FULL, contrib)) continue;
+          mask |= 1u << jj;
+          if (EOGS2_BWD_SCATTER) {
+            const float s = warp_reduce_scatter(v, lane);
+            const int f = lane >> 1;
+            if (!(lane & 1) && f < NF) part[warp][f][jj] = s;
+          } else {
 #pragma unroll
-                for (int cc = 0; cc < NC; ++cc) v[6 + cc] = w * gpix[cc];
-                T = test_T;
-                contrib = true;
-              }
+            for (int f = 0; f < NF; ++f) {
+#pragma unroll
+              for (int off = 16; off > 0; off >>= 1)
+                v[f] += __shfl_xor_sync(FULL, v[f], off);
+            }
+            if (lane == 0) {
+#pragma unroll
+              for (int f = 0; f < NF; ++f) part[warp][f][jj] = v[f];
             }
           }
         }
-        if (__any_sync(FULL, contrib)) {
-#pragma unroll
-          for (int f = 0; f < NF; ++f) {
-#pragma unroll
-            for (int off = 16; off > 0; off >>= 1)
-              v[f] += __shfl_xor_sync(FULL, v[f], off);
-          }
-        }
-        if (lane == 0) {
-#pragma unroll
-          for (int f = 0; f < NF; ++f) part[warp][f][jj] = v[f];
-        }
       }
+      if (lane == 0) wmask[warp] = mask;
       __syncthreads();
-      // the 8 warps' partials, added in a fixed order, written coalesced
+      // the marked warps' partials, added in a fixed order; the conic
+      // enters the mean's gradient here, once per pair
+      auto sum = [&](int f, int jj) {
+        float s = 0.0f;
+#pragma unroll
+        for (int w = 0; w < NW; ++w)
+          if (wmask[w] >> jj & 1u) s += part[w][f][jj];
+        return s;
+      };
+      auto field = [&](int f, int jj) {
+        const float4 r0 = batch[buf][s0 + jj].r0;
+        switch (f) {
+          case 0: return -(r0.z * sum(0, jj) + r0.w * sum(1, jj));
+          case 1: return -(batch[buf][s0 + jj].r1.x * sum(1, jj) +
+                           r0.w * sum(0, jj));
+          case 2: return -0.5f * sum(2, jj);
+          case 3: return -sum(3, jj);
+          case 4: return -0.5f * sum(4, jj);
+          default: return sum(f, jj);
+        }
+      };
       const long long p0 = start + base + s0;
       if (ROWS) {
-        for (int idx = tid; idx < NFR * SUB; idx += PIX) {
+        for (int idx = threadIdx.x; idx < NFR * SUB; idx += NT) {
           const int jj = idx / NFR;
           const int f = idx % NFR;
-          if (jj < ms) {
-            float s = 0.0f;
-            if (f < NF) {
-              s = part[0][f][jj];
-#pragma unroll
-              for (int w = 1; w < NWARP; ++w) s += part[w][f][jj];
-            }
-            gpay[(p0 + jj) * NFR + f] = s;
-          }
+          if (jj < ms) gpay[(p0 + jj) * NFR + f] = f < NF ? field(f, jj) : 0.0f;
         }
       } else {
-        for (int idx = tid; idx < NF * SUB; idx += PIX) {
+        for (int idx = threadIdx.x; idx < NF * SUB; idx += NT) {
           const int f = idx / SUB;
           const int jj = idx % SUB;
-          if (jj < ms) {
-            float s = part[0][f][jj];
-#pragma unroll
-            for (int w = 1; w < NWARP; ++w) s += part[w][f][jj];
-            gpay[(long long)f * stride + p0 + jj] = s;
-          }
+          if (jj < ms) gpay[(long long)f * stride + p0 + jj] = field(f, jj);
         }
       }
-      __syncthreads();  // part is reused by the next round
+      __syncthreads();  // part and wmask are reused by the next round
     }
   }
   // pairs past the walk: no pixel composited them
   if (ROWS) {
-    for (long long i = (long long)n_walk * NFR + tid; i < (long long)n * NFR;
-         i += PIX)
+    for (long long i = (long long)n_walk * NFR + threadIdx.x;
+         i < (long long)n * NFR; i += NT)
       gpay[start * NFR + i] = 0.0f;
   } else {
-    for (int k = n_walk + tid; k < n; k += PIX) {
+    for (int k = n_walk + threadIdx.x; k < n; k += NT) {
 #pragma unroll
       for (int f = 0; f < NF; ++f) gpay[(long long)f * stride + start + k] = 0.0f;
     }
@@ -226,9 +357,11 @@ template <bool ROWS>
 int launch(const float* pay, long long stride, const int* tstart,
            const int* cnt, int n_tiles, int grid_x, const float* out8,
            const float* gout8, float* gpay, void* stream) {
+  constexpr int PPT = EOGS2_BWD_PPT;
   if (n_tiles > 0) {
-    fused_blend_bwd_kernel<ROWS><<<n_tiles, PIX, 0, (cudaStream_t)stream>>>(
-        pay, stride, tstart, cnt, grid_x, out8, gout8, gpay);
+    fused_blend_bwd_kernel<ROWS, PPT, EOGS2_BWD_U>
+        <<<n_tiles, PIX / PPT, 0, (cudaStream_t)stream>>>(
+            pay, stride, tstart, cnt, grid_x, out8, gout8, gpay);
   }
   return (int)cudaGetLastError();
 }

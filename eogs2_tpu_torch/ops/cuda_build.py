@@ -5,8 +5,16 @@ Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled by
 the package (listed in .gitignore), then loaded with ctypes. The hash covers
 the source, every header of ``csrc/`` it includes (``#include "x.cuh"``,
 followed recursively) and the flags, so an edited source or shared header
-is rebuilt and a stale library is never loaded. Nothing here runs when a module is imported: the
-CPU tests import every module on a machine without nvcc.
+is rebuilt and a stale library is never loaded. Nothing here runs when a
+module is imported: the CPU tests import every module on a machine without
+nvcc.
+
+A library may also be built with extra preprocessor definitions (the
+kernels' compile-time variants) or from another source directory (an older
+checkout's ``csrc``): ``load(name, defines=("EOGS2_BWD_PPT=4",),
+csrc=...)``. Such a library has the same C interface and its own hash;
+the wrappers use the default one, and ``scripts/fused_blend_ab.py`` swaps
+others in to time them against each other.
 """
 
 from __future__ import annotations
@@ -49,11 +57,11 @@ def _nvcc() -> str:
 _LOCAL_INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.M)
 
 
-def source_files(name: str) -> list:
+def source_files(name: str, csrc: str = CSRC) -> list:
     """csrc/<name>.cu and the csrc headers it includes, recursively."""
     files, todo = [], [f"{name}.cu"]
     while todo:
-        path = os.path.join(CSRC, todo.pop())
+        path = os.path.join(csrc, todo.pop())
         if path in files:
             continue
         files.append(path)
@@ -62,32 +70,52 @@ def source_files(name: str) -> list:
     return files
 
 
-def _build(name: str) -> str:
-    src = os.path.join(CSRC, f"{name}.cu")
-    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for path in source_files(name):
+def nvcc_command(name: str, out: str, defines=(), csrc: str = CSRC) -> list:
+    """The nvcc command line that builds csrc/<name>.cu into `out`."""
+    return [_nvcc(), *NVCC_FLAGS, *(f"-D{d}" for d in defines), "-o", out,
+            os.path.join(csrc, f"{name}.cu")]
+
+
+def library_path(name: str, defines=(), csrc: str = CSRC) -> str:
+    """_build/lib<name>-<hash>.so, the hash over the flags, the definitions
+    and the source with its headers (paths relative to csrc)."""
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS + tuple(
+        f"-D{d}" for d in defines)).encode())
+    for path in source_files(name, csrc):
         with open(path, "rb") as f:
-            digest.update(path[len(CSRC):].encode() + f.read())
-    so = os.path.join(BUILD_DIR, f"lib{name}-{digest.hexdigest()[:16]}.so")
+            digest.update(path[len(csrc):].encode() + f.read())
+    return os.path.join(BUILD_DIR, f"lib{name}-{digest.hexdigest()[:16]}.so")
+
+
+def _build(name: str, defines=(), csrc: str = CSRC) -> str:
+    so = library_path(name, defines, csrc)
     if os.path.exists(so):
         return so
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{so}.{os.getpid()}.tmp"
-    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, src],
+    proc = subprocess.run(nvcc_command(name, tmp, defines, csrc),
                           capture_output=True, text=True)
-    build_logs[name] = proc.stdout + proc.stderr
+    key = _key(name, defines, csrc)
+    build_logs[key] = proc.stdout + proc.stderr
     if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed on {src}:\n{build_logs[name]}")
+        raise RuntimeError(f"nvcc failed on {name}.cu:\n{build_logs[key]}")
     os.replace(tmp, so)  # atomic: a concurrent loader sees all or nothing
     return so
 
 
-def load(name: str) -> ctypes.CDLL:
+def _key(name: str, defines=(), csrc: str = CSRC):
+    """name for the default build, else (name, defines, csrc)."""
+    return name if not defines and csrc == CSRC else (name, tuple(defines),
+                                                      csrc)
+
+
+def load(name: str, defines=(), csrc: str = CSRC) -> ctypes.CDLL:
     """The built library for csrc/<name>.cu (built on first call)."""
+    key = _key(name, defines, csrc)
     with _lock:
-        if name not in _libs:
-            _libs[name] = ctypes.CDLL(_build(name))
-        return _libs[name]
+        if key not in _libs:
+            _libs[key] = ctypes.CDLL(_build(name, defines, csrc))
+        return _libs[key]
 
 
 def entry(name: str, symbol: str, argtypes):
@@ -106,9 +134,13 @@ def check_launch(err: int, what: str):
         raise RuntimeError(f"{what} kernel launch failed: CUDA error {err}")
 
 
-def build_all() -> list:
-    """Build every csrc/*.cu in parallel (one nvcc each); returns names."""
-    names = sorted(f[:-3] for f in os.listdir(CSRC) if f.endswith(".cu"))
-    with ThreadPoolExecutor(max(1, len(names))) as ex:
-        list(ex.map(_build, names))
-    return names
+def build_all(builds=None) -> list:
+    """Build in parallel (one nvcc each) the given (name, defines, csrc)
+    argument tuples of load, by default (name,) of every csrc/*.cu; returns
+    the tuples."""
+    if builds is None:
+        builds = [(f[:-3],) for f in sorted(os.listdir(CSRC))
+                  if f.endswith(".cu")]
+    with ThreadPoolExecutor(max(1, len(builds))) as ex:
+        list(ex.map(lambda b: _build(*b), builds))
+    return builds

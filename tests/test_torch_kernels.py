@@ -9,8 +9,8 @@ JAX test harness of tests/conftest.py:
 
 Tolerances: K1's and K4's channels 0-4 atol 2e-4 and final_T atol 2e-5,
 those of tests/test_golden.py (pairs at the 1/255 and T_EPS edges may be
-decided differently after a one-ulp difference in exp); K4's n_contrib
-exact. K2, K4 backward and the gradients of rasterize: per payload row /
+decided differently after a one-ulp difference in exp); K1's and K4's
+n_contrib exact. K2, K4 backward and the gradients of rasterize: per payload row /
 per input, max-abs error over the max-abs value < 2e-4 (test_golden.py's
 gradient tolerance; sums over pixels run in another order). K3 equals
 K1/K2 bit for bit (the same arithmetic, another load).
@@ -66,7 +66,7 @@ def _scene(device, n, seed):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("tile_cull", [False, True])
-@pytest.mark.parametrize("wh", [(128, 128), (80, 48)])
+@pytest.mark.parametrize("wh", [(128, 128), (80, 48), (176, 32)])
 def test_k1_matches_plain(cuda, tile_cull, wh):
     w, h = wh
     args = _scene(cuda, 2048, seed=3)
@@ -82,7 +82,97 @@ def test_k1_matches_plain(cuda, tile_cull, wh):
     assert torch.isfinite(k).all()
     torch.testing.assert_close(k[..., :5], p[..., :5], atol=2e-4, rtol=0)
     torch.testing.assert_close(k[..., 5], p[..., 5], atol=2e-5, rtol=0)
+    assert torch.equal(k[..., 6], p[..., 6])
     assert (k[..., 7] == 0).all()
+
+
+def _long_tiles(device, seed=0):
+    """A sorted column payload over a 4 x 2 tile grid (64 x 32 pixels) whose
+    tiles hold 700 (three 256-pair batches), 0, 300 (opaque: its pixels
+    stop early), 513, 0, 40, 1 and 256 pairs. Gaussians of 1.5-4 px near
+    their tile, opacities 0.005-0.05 (pixels that never saturate walk every
+    batch) except in the opaque tile."""
+    rng = np.random.RandomState(seed)
+    counts = [700, 0, 300, 513, 0, 40, 1, 256]
+    cols = []
+    for t, c in enumerate(counts):
+        ox, oy = (t % 4) * 16, (t // 4) * 16
+        sig = rng.uniform(1.5, 4.0, (c, 2))
+        op = rng.uniform(0.5, 0.99, c) if t == 2 else rng.uniform(0.005,
+                                                                  0.05, c)
+        cols.append(np.stack([
+            ox + rng.uniform(-4, 20, c), oy + rng.uniform(-4, 20, c),
+            1 / sig[:, 0] ** 2, rng.uniform(-0.02, 0.02, c),
+            1 / sig[:, 1] ** 2, op, *rng.uniform(0, 1, (5, c))]))
+    pay = np.concatenate(cols, 1).astype(np.float32)
+    cnt = np.array(counts, np.int32)
+    tstart = np.concatenate([[0], np.cumsum(cnt)[:-1]]).astype(np.int32)
+    return [torch.tensor(a, device=device) for a in (pay, tstart, cnt)]
+
+
+@pytest.mark.cuda
+def test_k1_k2_long_and_empty_tiles(cuda):
+    """K1, K2 and K3 over three batches in one tile, over tiles with no
+    pair and one pair, and at a batch edge, against the plain versions."""
+    pay, tstart, cnt = _long_tiles(cuda)
+    k = fused_blend_fwd(pay, tstart, cnt, 4)
+    p = fused_blend_fwd_plain(pay, tstart, cnt, 4)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(k[..., :5], p[..., :5], atol=2e-4, rtol=0)
+    torch.testing.assert_close(k[..., 5], p[..., 5], atol=2e-5, rtol=0)
+    assert torch.equal(k[..., 6], p[..., 6])
+    assert (k[0, :, 6] > 512).any()  # pixels composited in the third batch
+    assert (k[2, :, 6] < 300).all() and (k[2, :, 5] < 1e-2).all()  # stopped
+    for t in (1, 4):  # no pair: nothing composited, T stays 1
+        assert (k[t, :, :5] == 0).all() and (k[t, :, 5] == 1).all()
+        assert (k[t, :, 6] == 0).all()
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    g_out8 = torch.randn(k.shape, generator=gen, device=cuda)
+    g = fused_blend_bwd(pay, tstart, cnt, k, g_out8, 4)
+    g_plain = fused_blend_bwd_plain(pay, tstart, cnt, k, g_out8, 4)
+    torch.cuda.synchronize()
+    assert torch.isfinite(g).all()
+    assert _row_err(g, g_plain) < 2e-4
+    rows = torch.nn.functional.pad(pay.t(), (0, 16 - NF)).contiguous()
+    assert torch.equal(fused_blend_fwd_rows(rows, tstart, cnt, 4), k)
+    g_rows = fused_blend_bwd_rows(rows, tstart, cnt, k, g_out8, 4)
+    assert torch.equal(g_rows[:, :NF].t(), g) and (g_rows[:, NF:] == 0).all()
+
+
+@pytest.mark.cuda
+def test_k2_bitwise_deterministic(cuda):
+    """Two launches of K2 on the same inputs give the same bits: every sum
+    runs in a fixed order and nothing is added atomically."""
+    pay, tstart, cnt = _long_tiles(cuda, seed=2)
+    out8 = fused_blend_fwd(pay, tstart, cnt, 4)
+    gen = torch.Generator(device=cuda).manual_seed(2)
+    g_out8 = torch.randn(out8.shape, generator=gen, device=cuda)
+    first = fused_blend_bwd(pay, tstart, cnt, out8, g_out8, 4)
+    for _ in range(3):
+        assert torch.equal(fused_blend_bwd(pay, tstart, cnt, out8, g_out8, 4),
+                           first)
+
+
+@pytest.mark.cuda
+def test_k1_nan_power_is_not_kept(cuda):
+    """A pair whose power is NaN (a NaN conic) is not kept, as the plain
+    version decides (power <= 1e-4 is false for NaN); K2 skips it too."""
+    pay, tstart, cnt = _long_tiles(cuda, seed=3)
+    pay[2, 5] = float("nan")  # conic a of the first tile's sixth pair
+    k = fused_blend_fwd(pay, tstart, cnt, 4)
+    p = fused_blend_fwd_plain(pay, tstart, cnt, 4)
+    torch.cuda.synchronize()
+    assert torch.isfinite(k).all()
+    torch.testing.assert_close(k[..., :5], p[..., :5], atol=2e-4, rtol=0)
+    assert torch.equal(k[..., 6], p[..., 6])
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    g_out8 = torch.randn(k.shape, generator=gen, device=cuda)
+    g = fused_blend_bwd(pay, tstart, cnt, k, g_out8, 4)
+    g_plain = fused_blend_bwd_plain(pay, tstart, cnt, k, g_out8, 4)
+    keep = torch.ones(pay.shape[1], dtype=torch.bool, device=cuda)
+    keep[5] = False  # its own mean and conic rows are NaN in both
+    assert torch.isfinite(g[:, keep]).all()
+    assert _row_err(g[:, keep], g_plain[:, keep]) < 2e-4
 
 
 @pytest.mark.cuda
@@ -114,7 +204,7 @@ def _row_err(got, want):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("tile_cull", [False, True])
-@pytest.mark.parametrize("wh", [(128, 128), (80, 48)])
+@pytest.mark.parametrize("wh", [(128, 128), (80, 48), (176, 32)])
 def test_k2_matches_plain(cuda, tile_cull, wh):
     w, h = wh
     args = _scene(cuda, 2048, seed=3)

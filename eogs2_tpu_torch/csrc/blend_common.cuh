@@ -8,7 +8,6 @@
 
 #include <cuda_pipeline.h>
 #include <cuda_runtime.h>
-#include <math_constants.h>
 
 // the plain versions compare float32 tensors with Python doubles, which
 // torch rounds to float32 once: round the same doubles here
@@ -16,20 +15,6 @@
 #define ALPHA_MAX ((float)0.99)
 #define T_EPS ((float)1e-4)
 #define POWER_TOL ((float)1e-4)
-
-// 1: K1 and K2 skip the exp of a pixel whose power lies below its pair's
-// alpha cut (see alpha_cut); 0: every pixel takes the exp (a variant kept
-// for measurement, scripts/fused_blend_ab.py).
-#ifndef EOGS2_ALPHA_CUT
-#define EOGS2_ALPHA_CUT 1
-#endif
-
-// 1: each warp of K1 and K2 covers a square-ish block of the tile (8 x 8
-// pixels at two pixels per thread); 0: whole rows (a variant kept for
-// measurement, scripts/fused_blend_ab.py).
-#ifndef EOGS2_PIXEL_BLOCKS
-#define EOGS2_PIXEL_BLOCKS 1
-#endif
 
 namespace eogs2 {
 
@@ -56,6 +41,11 @@ struct __align__(16) Pair {
 
 constexpr int BATCH = 256;  // pairs per staged batch
 
+// K1 and K2: two horizontally adjacent pixels per thread, so 128 threads
+// per tile
+constexpr int PPT = 2;
+constexpr int NT = PIX / PPT;
+
 // The power below which op * exp(power) < ALPHA_EPS for certain, so the keep
 // test fails: log(ALPHA_EPS / op) less a margin of 1e-3 in log space, a
 // thousand times the few-ulp error of logf, expf and the product. Skipping
@@ -63,7 +53,7 @@ constexpr int BATCH = 256;  // pairs per staged batch
 // the same bits. Opacity 0 gives +inf (alpha is 0: every pixel skips); a
 // negative or NaN opacity gives NaN, which skips none.
 __device__ __forceinline__ float alpha_cut(float op) {
-  return EOGS2_ALPHA_CUT ? logf(ALPHA_EPS / op) - 1e-3f : -CUDART_INF_F;
+  return logf(ALPHA_EPS / op) - 1e-3f;
 }
 
 // Start the asynchronous copy (cp.async) of pair p into s, in the payload's
@@ -91,7 +81,7 @@ __device__ __forceinline__ void copy_pair_async(Pair* s,
 // Copy pairs [base, min(base + BATCH, n)) of a tile whose range starts at
 // `start` into buf: thread t copies slots t, t + NT, ... and commits one
 // cp.async group.
-template <bool ROWS, int NT>
+template <bool ROWS>
 __device__ __forceinline__ void stage_batch(Pair* buf,
                                             const float* __restrict__ pay,
                                             long long stride, long long start,
@@ -108,7 +98,6 @@ __device__ __forceinline__ void stage_batch(Pair* buf,
 // Wait for this thread's copies of the batch and rearrange its slots from
 // the payload's field order into Pair's (adding the alpha cut). A barrier
 // must follow before other threads read the batch.
-template <int NT>
 __device__ __forceinline__ void finish_batch(Pair* buf, int base, int n) {
   __pipeline_wait_prior(0);
 #pragma unroll
@@ -123,17 +112,14 @@ __device__ __forceinline__ void finish_batch(Pair* buf, int base, int n) {
 }
 
 // The tile-local (x, y) of thread t's first pixel; its PPT pixels are (x + i,
-// y). With pixel blocks a warp covers a block 8 pixels wide (16 at PPT 4) and
-// 32 * PPT / 8 rows high, so that fewer warps meet a small Gaussian; else
-// PPT * 32 consecutive pixels of whole rows.
-template <int PPT>
+// y). Each warp covers an 8 x 8 block of the tile, four lanes to a row, so
+// that fewer warps meet a small Gaussian than with whole rows.
 __device__ __forceinline__ int2 thread_pixel(int t) {
-  constexpr int WB = (EOGS2_PIXEL_BLOCKS && PPT < 4) ? 8 : TILE;
-  constexpr int HB = 32 * PPT / WB;
+  constexpr int WB = 8;              // block width in pixels
   constexpr int PER_ROW = WB / PPT;  // lanes per block row
   const int lane = t & 31, warp = t >> 5;
   return make_int2((warp % (TILE / WB)) * WB + (lane % PER_ROW) * PPT,
-                   (warp / (TILE / WB)) * HB + lane / PER_ROW);
+                   (warp / (TILE / WB)) * (32 / PER_ROW) + lane / PER_ROW);
 }
 
 // The power of a pair at a pixel, rounded as the plain versions round it:
@@ -144,16 +130,16 @@ __device__ __forceinline__ float pair_power(float4 r0, float cdy2, float dx,
   return -0.5f * (r0.z * dx * dx + cdy2) - r0.w * dx * dy;
 }
 
-// The largest v over the block's NT threads (every thread must call it);
-// smem holds NT / 32 ints and may be reused once it returns.
-template <int NT = PIX>
+// The largest v over the block's THREADS threads (every thread must call
+// it); smem holds THREADS / 32 ints and may be reused once it returns.
+template <int THREADS = PIX>
 __device__ __forceinline__ int block_max(int v, int* smem) {
   v = __reduce_max_sync(FULL, v);
   if ((threadIdx.x & 31) == 0) smem[threadIdx.x >> 5] = v;
   __syncthreads();
   int m = smem[0];
 #pragma unroll
-  for (int w = 1; w < NT / 32; ++w) m = max(m, smem[w]);
+  for (int w = 1; w < THREADS / 32; ++w) m = max(m, smem[w]);
   __syncthreads();
   return m;
 }

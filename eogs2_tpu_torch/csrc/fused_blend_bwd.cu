@@ -77,33 +77,16 @@
 //     pair order, and a warp none of whose pixels passed skips the four.
 // No atomics: every pair row belongs to exactly one tile and every sum runs
 // in a fixed order, so the output is bitwise identical launch to launch.
-// scripts/fused_blend_ab.py times this design against the parent's kernel
-// and against its variants (the EOGS2_* definitions below); PERF.md
-// section 6 has the numbers.
+// scripts/fused_blend_ab.py times this kernel against an older checkout's;
+// PERF.md section 6 has the numbers, with those of the alternatives tried
+// (1 or 4 pixels per thread, eleven full butterflies with lane 0 storing,
+// whole-row warps, no alpha cut, U = 1 or 8, no explicit fused
+// multiply-adds), all slower.
 //
 // Built with -fmad=false (ops/cuda_build.py) and the accurate expf, like
 // K1: the recomputed alpha, T and keep/stop decisions match K1 bit for bit.
 
 #include "blend_common.cuh"
-
-// variants for measurement (scripts/fused_blend_ab.py); the defaults are the
-// design above. EOGS2_BWD_PPT: pixels per thread (1, 2 or 4);
-// EOGS2_BWD_U: pairs whose cheap test runs at once (1, 2, 4 or 8; it must
-// divide SUB); EOGS2_BWD_SCATTER 0: eleven full butterflies, lane 0
-// storing the sums;
-// EOGS2_BWD_FMA 0: no explicit fused multiply-adds, true division.
-#ifndef EOGS2_BWD_PPT
-#define EOGS2_BWD_PPT 2
-#endif
-#ifndef EOGS2_BWD_U
-#define EOGS2_BWD_U 4
-#endif
-#ifndef EOGS2_BWD_SCATTER
-#define EOGS2_BWD_SCATTER 1
-#endif
-#ifndef EOGS2_BWD_FMA
-#define EOGS2_BWD_FMA 1
-#endif
 
 namespace {
 
@@ -111,14 +94,7 @@ using namespace eogs2;
 
 constexpr int SUB = 32;  // pairs per block-level reduction round (a mask)
 constexpr int NV = 16;   // the 11 per-pair sums padded for the reduce-scatter
-
-__device__ __forceinline__ float fma_g(float a, float b, float c) {
-  return EOGS2_BWD_FMA ? __fmaf_rn(a, b, c) : a * b + c;
-}
-
-__device__ __forceinline__ float div_g(float a, float b) {
-  return EOGS2_BWD_FMA ? __fdividef(a, b) : a / b;
-}
+constexpr int U = 4;     // pairs whose cheap test runs at once (divides SUB)
 
 // One step of recursive halving: lanes l and l ^ 2H swap halves of v[0, 2H)
 // so that each keeps the sum of one half, selected by its lane bit 2H. H is
@@ -145,15 +121,14 @@ __device__ __forceinline__ float warp_reduce_scatter(float (&v)[NV], int lane) {
   return v[0] + __shfl_xor_sync(FULL, v[0], 1);
 }
 
-template <bool ROWS, int PPT, int U>
-__global__ void __launch_bounds__(PIX / PPT)
+template <bool ROWS>
+__global__ void __launch_bounds__(NT)
 fused_blend_bwd_kernel(const float* __restrict__ pay, long long stride,
                        const int* __restrict__ tstart,
                        const int* __restrict__ cnt, int grid_x,
                        const float* __restrict__ out8,
                        const float* __restrict__ gout8,
                        float* __restrict__ gpay) {
-  constexpr int NT = PIX / PPT;
   constexpr int NW = NT / 32;
   __shared__ Pair batch[2][BATCH];
   // per warp and pair of a round, the warp's 11 sums; +1 against bank
@@ -164,7 +139,7 @@ fused_blend_bwd_kernel(const float* __restrict__ pay, long long stride,
   const int tile = blockIdx.x;
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
-  const int2 lp = thread_pixel<PPT>(threadIdx.x);
+  const int2 lp = thread_pixel(threadIdx.x);
   const int pix0 = lp.y * TILE + lp.x;  // this thread's first pixel in the tile
   const float px0 = (float)((tile % grid_x) * TILE + lp.x);
   const float py = (float)((tile / grid_x) * TILE + lp.y);
@@ -197,13 +172,13 @@ fused_blend_bwd_kernel(const float* __restrict__ pay, long long stride,
   const int n_walk = min(block_max<NT>(walk, red), n);
   const int warp_walk = __reduce_max_sync(FULL, walk);
 
-  if (n_walk > 0) stage_batch<ROWS, NT>(batch[0], pay, stride, start, 0, n_walk);
+  if (n_walk > 0) stage_batch<ROWS>(batch[0], pay, stride, start, 0, n_walk);
   for (int base = 0, buf = 0; base < n_walk; base += BATCH, buf ^= 1) {
-    finish_batch<NT>(batch[buf], base, n_walk);
+    finish_batch(batch[buf], base, n_walk);
     __syncthreads();  // the batch has landed; the other buffer is free
     if (base + BATCH < n_walk)
-      stage_batch<ROWS, NT>(batch[buf ^ 1], pay, stride, start, base + BATCH,
-                            n_walk);
+      stage_batch<ROWS>(batch[buf ^ 1], pay, stride, start, base + BATCH,
+                        n_walk);
     const int m = min(BATCH, n_walk - base);
     for (int s0 = 0; s0 < m; s0 += SUB) {
       const int ms = min(SUB, m - s0);
@@ -258,46 +233,33 @@ fused_blend_bwd_kernel(const float* __restrict__ pay, long long stride,
             if (test_T < T_EPS) continue;
             const float w = alpha * T[i];
             float fdot = gpix[i][0] * r1.w;
-            fdot = fma_g(gpix[i][1], r2.x, fdot);
-            fdot = fma_g(gpix[i][2], r2.y, fdot);
-            fdot = fma_g(gpix[i][3], r2.z, fdot);
-            fdot = fma_g(gpix[i][4], r2.w, fdot);
-            prefix[i] = fma_g(w, fdot, prefix[i]);
+            fdot = __fmaf_rn(gpix[i][1], r2.x, fdot);
+            fdot = __fmaf_rn(gpix[i][2], r2.y, fdot);
+            fdot = __fmaf_rn(gpix[i][3], r2.z, fdot);
+            fdot = __fmaf_rn(gpix[i][4], r2.w, fdot);
+            prefix[i] = __fmaf_rn(w, fdot, prefix[i]);
             const float suffix = total[i] - prefix[i];
-            const float g_alpha =
-                fma_g(fdot, T[i], -div_g(suffix + tail[i], one_minus));
+            const float g_alpha = __fmaf_rn(
+                fdot, T[i], -__fdividef(suffix + tail[i], one_minus));
             const float gG = g_alpha * opG;
             const float gdx = gG * dx, gdy = gG * dy;
             v[0] += gdx;
             v[1] += gdy;
-            v[2] = fma_g(gdx, dx, v[2]);
-            v[3] = fma_g(gdx, dy, v[3]);
-            v[4] = fma_g(gdy, dy, v[4]);
-            v[5] = fma_g(g_alpha, G, v[5]);
+            v[2] = __fmaf_rn(gdx, dx, v[2]);
+            v[3] = __fmaf_rn(gdx, dy, v[3]);
+            v[4] = __fmaf_rn(gdy, dy, v[4]);
+            v[5] = __fmaf_rn(g_alpha, G, v[5]);
 #pragma unroll
             for (int c = 0; c < NC; ++c)
-              v[6 + c] = fma_g(w, gpix[i][c], v[6 + c]);
+              v[6 + c] = __fmaf_rn(w, gpix[i][c], v[6 + c]);
             T[i] = test_T;
             contrib = true;
           }
           if (!__any_sync(FULL, contrib)) continue;
           mask |= 1u << jj;
-          if (EOGS2_BWD_SCATTER) {
-            const float s = warp_reduce_scatter(v, lane);
-            const int f = lane >> 1;
-            if (!(lane & 1) && f < NF) part[warp][f][jj] = s;
-          } else {
-#pragma unroll
-            for (int f = 0; f < NF; ++f) {
-#pragma unroll
-              for (int off = 16; off > 0; off >>= 1)
-                v[f] += __shfl_xor_sync(FULL, v[f], off);
-            }
-            if (lane == 0) {
-#pragma unroll
-              for (int f = 0; f < NF; ++f) part[warp][f][jj] = v[f];
-            }
-          }
+          const float s = warp_reduce_scatter(v, lane);
+          const int f = lane >> 1;
+          if (!(lane & 1) && f < NF) part[warp][f][jj] = s;
         }
       }
       if (lane == 0) wmask[warp] = mask;
@@ -357,10 +319,8 @@ template <bool ROWS>
 int launch(const float* pay, long long stride, const int* tstart,
            const int* cnt, int n_tiles, int grid_x, const float* out8,
            const float* gout8, float* gpay, void* stream) {
-  constexpr int PPT = EOGS2_BWD_PPT;
   if (n_tiles > 0) {
-    fused_blend_bwd_kernel<ROWS, PPT, EOGS2_BWD_U>
-        <<<n_tiles, PIX / PPT, 0, (cudaStream_t)stream>>>(
+    fused_blend_bwd_kernel<ROWS><<<n_tiles, NT, 0, (cudaStream_t)stream>>>(
             pay, stride, tstart, cnt, grid_x, out8, gout8, gpay);
   }
   return (int)cudaGetLastError();

@@ -70,9 +70,10 @@
 //     batch runs while the pixels walk this one.
 // Each pixel keeps T and its sums in registers; the block stops as soon as
 // __syncthreads_count shows every thread's pixels done. No atomics: the
-// output is deterministic. scripts/fused_blend_ab.py times this design
-// against the parent's kernel and against its variants (the EOGS2_*
-// definitions below); PERF.md section 6 has the numbers.
+// output is deterministic. scripts/fused_blend_ab.py times this kernel
+// against an older checkout's; PERF.md section 6 has the numbers, with
+// those of the alternatives tried (1 or 4 pixels per thread, whole-row
+// warps, no alpha cut, U = 1 or 8, unfused channel sums), all slower.
 //
 // Built with -fmad=false (ops/cuda_build.py) so every product and sum of the
 // keep and stop decisions rounds as in the plain version, and with expf (not
@@ -82,40 +83,21 @@
 
 #include "blend_common.cuh"
 
-// variants for measurement (scripts/fused_blend_ab.py); the defaults are the
-// design above. EOGS2_FWD_PPT: pixels per thread (1, 2 or 4);
-// EOGS2_FWD_U: pairs whose cheap test runs at once (1, 2, 4 or 8);
-// EOGS2_FWD_FMA 0: the channel sums as separate products and adds.
-#ifndef EOGS2_FWD_PPT
-#define EOGS2_FWD_PPT 2
-#endif
-#ifndef EOGS2_FWD_U
-#define EOGS2_FWD_U 4
-#endif
-#ifndef EOGS2_FWD_FMA
-#define EOGS2_FWD_FMA 1
-#endif
-
 namespace {
 
 using namespace eogs2;
 
-// the channel sums decide nothing, and the plain version adds them in
-// another order (an einsum): they may fuse
-__device__ __forceinline__ float fma_c(float a, float b, float c) {
-  return EOGS2_FWD_FMA ? __fmaf_rn(a, b, c) : a * b + c;
-}
+constexpr int U = 4;  // pairs whose cheap test runs at once
 
-template <bool ROWS, int PPT, int U>
-__global__ void __launch_bounds__(PIX / PPT)
+template <bool ROWS>
+__global__ void __launch_bounds__(NT)
 fused_blend_fwd_kernel(const float* __restrict__ pay, long long stride,
                        const int* __restrict__ tstart,
                        const int* __restrict__ cnt, int grid_x,
                        float* __restrict__ out8) {
-  constexpr int NT = PIX / PPT;
   __shared__ Pair batch[2][BATCH];
   const int tile = blockIdx.x;
-  const int2 lp = thread_pixel<PPT>(threadIdx.x);
+  const int2 lp = thread_pixel(threadIdx.x);
   const int pix0 = lp.y * TILE + lp.x;  // this thread's first pixel in the tile
   const float px0 = (float)((tile % grid_x) * TILE + lp.x);
   const float py = (float)((tile / grid_x) * TILE + lp.y);
@@ -135,13 +117,13 @@ fused_blend_fwd_kernel(const float* __restrict__ pay, long long stride,
   }
   bool all_done = false;
 
-  if (n > 0) stage_batch<ROWS, NT>(batch[0], pay, stride, start, 0, n);
+  if (n > 0) stage_batch<ROWS>(batch[0], pay, stride, start, 0, n);
   for (int base = 0, buf = 0; base < n; base += BATCH, buf ^= 1) {
-    finish_batch<NT>(batch[buf], base, n);
+    finish_batch(batch[buf], base, n);
     // also the barrier that keeps the other buffer until all have read it
     if (__syncthreads_count(all_done) == NT) break;
     if (base + BATCH < n)
-      stage_batch<ROWS, NT>(batch[buf ^ 1], pay, stride, start, base + BATCH, n);
+      stage_batch<ROWS>(batch[buf ^ 1], pay, stride, start, base + BATCH, n);
     const int m = min(BATCH, n - base);
     for (int j = 0; !all_done && j < m; j += U) {
       // the cheap half of the keep test (power against the tolerance and
@@ -179,12 +161,14 @@ fused_blend_fwd_kernel(const float* __restrict__ pay, long long stride,
             continue;
           }
           const float w = alpha * T[i];
+          // the channel sums decide nothing, and the plain version adds
+          // them in another order (an einsum): they may fuse
           const float4 r1 = q->r1, r2 = q->r2;
-          acc[i][0] = fma_c(w, r1.w, acc[i][0]);
-          acc[i][1] = fma_c(w, r2.x, acc[i][1]);
-          acc[i][2] = fma_c(w, r2.y, acc[i][2]);
-          acc[i][3] = fma_c(w, r2.z, acc[i][3]);
-          acc[i][4] = fma_c(w, r2.w, acc[i][4]);
+          acc[i][0] = __fmaf_rn(w, r1.w, acc[i][0]);
+          acc[i][1] = __fmaf_rn(w, r2.x, acc[i][1]);
+          acc[i][2] = __fmaf_rn(w, r2.y, acc[i][2]);
+          acc[i][3] = __fmaf_rn(w, r2.z, acc[i][3]);
+          acc[i][4] = __fmaf_rn(w, r2.w, acc[i][4]);
           T[i] = test_T;
           last[i] = base + j + u + 1;
         }
@@ -206,10 +190,8 @@ template <bool ROWS>
 int launch(const float* pay, long long stride, const int* tstart,
            const int* cnt, int n_tiles, int grid_x, float* out8,
            void* stream) {
-  constexpr int PPT = EOGS2_FWD_PPT;
   if (n_tiles > 0) {
-    fused_blend_fwd_kernel<ROWS, PPT, EOGS2_FWD_U>
-        <<<n_tiles, PIX / PPT, 0, (cudaStream_t)stream>>>(
+    fused_blend_fwd_kernel<ROWS><<<n_tiles, NT, 0, (cudaStream_t)stream>>>(
             pay, stride, tstart, cnt, grid_x, out8);
   }
   return (int)cudaGetLastError();

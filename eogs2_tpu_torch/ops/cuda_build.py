@@ -9,12 +9,12 @@ is rebuilt and a stale library is never loaded. Nothing here runs when a
 module is imported: the CPU tests import every module on a machine without
 nvcc.
 
-A library may also be built with extra preprocessor definitions (the
-kernels' compile-time variants) or from another source directory (an older
-checkout's ``csrc``): ``load(name, defines=("EOGS2_BWD_PPT=4",),
-csrc=...)``. Such a library has the same C interface and its own hash;
-the wrappers use the default one, and ``scripts/fused_blend_ab.py`` swaps
-others in to time them against each other.
+A library may also be built from another source directory, such as an
+older checkout's ``csrc``: ``load(name, csrc=...)``. It has the same C
+interface and its own hash. The wrappers launch the library cached under
+``name``, looked up at every launch (``entry``), so
+``scripts/fused_blend_ab.py`` can swap another build in under that name and
+time the two against each other.
 """
 
 from __future__ import annotations
@@ -70,32 +70,30 @@ def source_files(name: str, csrc: str = CSRC) -> list:
     return files
 
 
-def nvcc_command(name: str, out: str, defines=(), csrc: str = CSRC) -> list:
+def nvcc_command(name: str, out: str, csrc: str = CSRC) -> list:
     """The nvcc command line that builds csrc/<name>.cu into `out`."""
-    return [_nvcc(), *NVCC_FLAGS, *(f"-D{d}" for d in defines), "-o", out,
-            os.path.join(csrc, f"{name}.cu")]
+    return [_nvcc(), *NVCC_FLAGS, "-o", out, os.path.join(csrc, f"{name}.cu")]
 
 
-def library_path(name: str, defines=(), csrc: str = CSRC) -> str:
-    """_build/lib<name>-<hash>.so, the hash over the flags, the definitions
-    and the source with its headers (paths relative to csrc)."""
-    digest = hashlib.sha256(" ".join(NVCC_FLAGS + tuple(
-        f"-D{d}" for d in defines)).encode())
+def library_path(name: str, csrc: str = CSRC) -> str:
+    """_build/lib<name>-<hash>.so, the hash over the flags and the source
+    with its headers (paths relative to csrc)."""
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for path in source_files(name, csrc):
         with open(path, "rb") as f:
             digest.update(path[len(csrc):].encode() + f.read())
     return os.path.join(BUILD_DIR, f"lib{name}-{digest.hexdigest()[:16]}.so")
 
 
-def _build(name: str, defines=(), csrc: str = CSRC) -> str:
-    so = library_path(name, defines, csrc)
+def _build(name: str, csrc: str = CSRC) -> str:
+    so = library_path(name, csrc)
     if os.path.exists(so):
         return so
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{so}.{os.getpid()}.tmp"
-    proc = subprocess.run(nvcc_command(name, tmp, defines, csrc),
+    proc = subprocess.run(nvcc_command(name, tmp, csrc),
                           capture_output=True, text=True)
-    key = _key(name, defines, csrc)
+    key = _key(name, csrc)
     build_logs[key] = proc.stdout + proc.stderr
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed on {name}.cu:\n{build_logs[key]}")
@@ -103,25 +101,27 @@ def _build(name: str, defines=(), csrc: str = CSRC) -> str:
     return so
 
 
-def _key(name: str, defines=(), csrc: str = CSRC):
-    """name for the default build, else (name, defines, csrc)."""
-    return name if not defines and csrc == CSRC else (name, tuple(defines),
-                                                      csrc)
+def _key(name: str, csrc: str = CSRC):
+    """name for this package's source, else (name, csrc)."""
+    return name if csrc == CSRC else (name, csrc)
 
 
-def load(name: str, defines=(), csrc: str = CSRC) -> ctypes.CDLL:
+def load(name: str, csrc: str = CSRC) -> ctypes.CDLL:
     """The built library for csrc/<name>.cu (built on first call)."""
-    key = _key(name, defines, csrc)
+    key = _key(name, csrc)
     with _lock:
         if key not in _libs:
-            _libs[key] = ctypes.CDLL(_build(name, defines, csrc))
+            _libs[key] = ctypes.CDLL(_build(name, csrc))
         return _libs[key]
 
 
 def entry(name: str, symbol: str, argtypes):
     """The C entry point ``symbol`` of csrc/<name>.cu with its argument types
     set (pointers and the stream as c_void_p); it returns the CUDA error of
-    the launch."""
+    the launch. The library is looked up (``load(name)``) at every call, and
+    the wrappers call this at every launch: a library put in ``_libs[name]``
+    is the one they launch next (``scripts/fused_blend_ab.py`` relies on
+    it)."""
     fn = getattr(load(name), symbol)
     fn.argtypes = argtypes
     fn.restype = ctypes.c_int
@@ -135,7 +135,7 @@ def check_launch(err: int, what: str):
 
 
 def build_all(builds=None) -> list:
-    """Build in parallel (one nvcc each) the given (name, defines, csrc)
+    """Build in parallel (one nvcc each) the given (name,) or (name, csrc)
     argument tuples of load, by default (name,) of every csrc/*.cu; returns
     the tuples."""
     if builds is None:

@@ -1,7 +1,6 @@
 #!/usr/bin/env python3
-"""K1 and K2 of the port's fused route, built from two source trees and as
-their compile-time variants, timed against each other in one process on one
-card.
+"""K1 and K2 of the port's fused route, built from two source trees and
+timed against each other in one process on one card.
 
     python3 scripts/fused_blend_ab.py [--parent DIR] [--out FILE]
 
@@ -10,19 +9,17 @@ an NVIDIA Hopper card and the CUDA toolkit. ``--parent`` names the root of
 another checkout (for example ``git archive`` of the parent commit unpacked
 in an ignored directory); its ``eogs2_tpu_torch/csrc/fused_blend_{fwd,bwd}.cu``
 are built with this checkout's nvcc flags and, since the C interface is the
-same, launched through this checkout's wrappers in place of its kernels. The
-variants are this checkout's sources built with other values of their
-``EOGS2_*`` definitions (csrc/blend_common.cuh, fused_blend_fwd.cu,
-fused_blend_bwd.cu).
+same, launched through this checkout's wrappers in place of its kernels.
+Without ``--parent`` only this checkout's kernels are timed.
 
   1. Inputs: one step of chip_smoke.py's train-1M-1024 cell (the scene of
      scripts/train_scale.py at scale 142, baseogs with the sun and the
      random camera, fused with tile_cull), captured at its three renders
      (main, sun 2048^2, random camera) after two warm-up steps, and the
      serve-1M-1024 cell's three K1 renders (view, sun, Nadir).
-  2. Every build of K1 at the six renders and of K2 at the three training
-     renders, in turns (parent, this tree, the variants, then the same in
-     reverse), 10 launches each timed by CUDA events after one warm-up;
+  2. Both builds of K1 at the six renders and of K2 at the three training
+     renders, in turns (parent, this tree, this tree, parent), 10 launches
+     each timed by CUDA events after one warm-up;
      K1's final_T and n_contrib against this tree's bit for bit and its
      channels 0-4 within 2e-4, K2's rows against this tree's (max error
      over the row's largest value), each run twice and compared bit for
@@ -30,7 +27,13 @@ fused_blend_bwd.cu).
   3. With --parent: the fused training step, render_view_full and
      nadir_dsm with the parent's kernels and with this tree's, interleaved
      one call at a time (parent, this, this, parent, five times: 10 calls
-     of each, medians), and each build's peak memory over its steps.
+     of each, medians), and each build's peak memory over its steps. In
+     every turn K2 runs once more at the main render's inputs and must give
+     that build's bits from step 2, which shows whose kernels the turn ran.
+     Per round, the change's two calls against the parent's two: the
+     difference of the means, and the parent's own spread (the larger
+     minus the smaller of its two calls), the yardstick PERF.md section 2
+     states for a later change.
 
 Prints one JSON line per measurement and writes them all, with the card's
 name and power limit, to --out (default output/fused_blend_ab.json, an
@@ -54,24 +57,6 @@ sys.path.insert(0, ROOT)
 import chip_smoke as cs  # noqa: E402
 
 KERNELS = ("fused_blend_fwd", "fused_blend_bwd")
-# variant -> (the kernel it replaces, its definitions)
-VARIANTS = {
-    "fwd_ppt4": ("fused_blend_fwd", ("EOGS2_FWD_PPT=4",)),
-    "fwd_no_cut": ("fused_blend_fwd", ("EOGS2_ALPHA_CUT=0",)),
-    "fwd_no_fma": ("fused_blend_fwd", ("EOGS2_FWD_FMA=0",)),
-    "fwd_u1": ("fused_blend_fwd", ("EOGS2_FWD_U=1",)),
-    "fwd_u8": ("fused_blend_fwd", ("EOGS2_FWD_U=8",)),
-    "fwd_rows": ("fused_blend_fwd", ("EOGS2_PIXEL_BLOCKS=0",)),
-    "fwd_ppt1": ("fused_blend_fwd", ("EOGS2_FWD_PPT=1",)),
-    "bwd_ppt1": ("fused_blend_bwd", ("EOGS2_BWD_PPT=1",)),
-    "bwd_ppt4": ("fused_blend_bwd", ("EOGS2_BWD_PPT=4",)),
-    "bwd_butterfly": ("fused_blend_bwd", ("EOGS2_BWD_SCATTER=0",)),
-    "bwd_no_fma": ("fused_blend_bwd", ("EOGS2_BWD_FMA=0",)),
-    "bwd_no_cut": ("fused_blend_bwd", ("EOGS2_ALPHA_CUT=0",)),
-    "bwd_u1": ("fused_blend_bwd", ("EOGS2_BWD_U=1",)),
-    "bwd_u8": ("fused_blend_bwd", ("EOGS2_BWD_U=8",)),
-    "bwd_rows": ("fused_blend_bwd", ("EOGS2_PIXEL_BLOCKS=0",)),
-}
 RECORDS = []
 
 
@@ -84,8 +69,9 @@ def log(obj):
 @contextlib.contextmanager
 def kernels_from(libs):
     """Within the block the wrappers launch the given libraries ({source
-    name: CDLL}): cuda_build caches the default build of each source under
-    its name, and the wrappers look it up at every launch."""
+    name: CDLL}): cuda_build caches the package's build of each source under
+    its name, and the wrappers look it up at every launch (cuda_build.entry;
+    end_to_end checks it by the bits of K2)."""
     from eogs2_tpu_torch.ops import cuda_build
 
     saved = {k: cuda_build._libs.get(k) for k in libs}
@@ -106,9 +92,7 @@ def build(parent_csrc):
 
     builds = {"this": [(k,) for k in KERNELS]}
     if parent_csrc:
-        builds["parent"] = [(k, (), parent_csrc) for k in KERNELS]
-    for v, (k, defines) in VARIANTS.items():
-        builds[v] = [(k, defines)]
+        builds["parent"] = [(k, parent_csrc) for k in KERNELS]
     t0 = time.perf_counter()
     cuda_build.build_all([b for bs in builds.values() for b in bs])
     libs = {name: {b[0]: cuda_build.load(*b) for b in bs}
@@ -152,7 +136,9 @@ def row_err(got, want):
 
 
 def time_kernels(libs, order, k1_inputs, k2_inputs):
-    """K1 and K2 of every build in `order`, then again in reverse order."""
+    """K1 and K2 of every build in `order`, then again in reverse order.
+    Returns the checks that failed and each build's K2 output at the main
+    render."""
     import torch
 
     from eogs2_tpu_torch.ops.fused_raster import (fused_blend_bwd,
@@ -167,14 +153,11 @@ def time_kernels(libs, order, k1_inputs, k2_inputs):
     with kernels_from(libs["this"]):
         ref1 = {r: k1(a) for r, a in k1_inputs.items()}
         ref2 = {r: k2(a) for r, a in k2_inputs.items()}
-    times, checks = {}, {}
+    times, checks, k2_main = {}, {}, {}
     for lib in order + order[::-1]:
         with kernels_from(libs[lib]):
             for kern, inputs, fn in (("k1", k1_inputs, k1),
                                      ("k2", k2_inputs, k2)):
-                if "fused_blend_" + ("fwd" if kern == "k1" else "bwd") \
-                        not in libs[lib]:
-                    continue
                 for render, a in inputs.items():
                     ms = cs.time_cuda(lambda: fn(a), 10)
                     times.setdefault((lib, kern, render), []).append(ms)
@@ -186,6 +169,8 @@ def time_kernels(libs, order, k1_inputs, k2_inputs):
                     c = dict(bitwise_equal_this=bool(torch.equal(out, ref)),
                              bitwise_deterministic=bool(torch.equal(out,
                                                                     again)))
+                    if kern == "k2" and render == "main":
+                        k2_main[lib] = out
                     if kern == "k1":
                         c.update(decisions_equal_this=bool(torch.equal(
                             out[..., 5:], ref[..., 5:])),
@@ -212,15 +197,19 @@ def time_kernels(libs, order, k1_inputs, k2_inputs):
                                      c["max_abs_err_ch0_4_vs_this"]
                                      <= cs.ATOL_CH))
            or (k[1] == "k2" and c["row_err_vs_this"] > cs.K2_ROW_TOL)}
-    return bad
+    return bad, k2_main
 
 
-def end_to_end(libs, tr, model, view, scene, shading, rounds=5):
+def end_to_end(libs, tr, model, view, scene, shading, k2_probe, k2_main,
+               rounds=5):
     """The fused step, render_view_full and nadir_dsm with the parent's
     kernels and with this tree's, interleaved one call at a time (parent,
-    this, this, parent, ...) so that both see the same training state."""
+    this, this, parent, ...) so that both see the same training state.
+    In every turn K2 runs at `k2_probe` (the main render's inputs) and must
+    give k2_main[build]. Returns the turns whose K2 gave other bits."""
     import torch
 
+    from eogs2_tpu_torch.ops.fused_raster import fused_blend_bwd
     from eogs2_tpu_torch.pipeline import nadir_dsm, render_view_full
     from eogs2_tpu_torch.rasterizer import RasterizeConfig
 
@@ -232,8 +221,11 @@ def end_to_end(libs, tr, model, view, scene, shading, rounds=5):
             tr.train_step(it)
             it += 1
     res = {lib: dict(step=[], peak=[], rvf=[], nadir=[]) for lib in turns}
-    for lib in turns:
+    wrong = []
+    for i, lib in enumerate(turns):
         with kernels_from(libs[lib]):
+            if not torch.equal(fused_blend_bwd(*k2_probe), k2_main[lib]):
+                wrong.append((i, lib))
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
             t = time.perf_counter()
@@ -256,6 +248,22 @@ def end_to_end(libs, tr, model, view, scene, shading, rounds=5):
                  render_view_full_all_ms=r["rvf"],
                  nadir_dsm_ms=statistics.median(r["nadir"]),
                  nadir_dsm_all_ms=r["nadir"]))
+    # per round (parent, this, this, parent): this tree's mean less the
+    # parent's, and the parent's own spread within the round
+    paired = {}
+    for key, name in (("step", "fused_step"), ("rvf", "render_view_full"),
+                      ("nadir", "nadir_dsm")):
+        p, t = res["parent"][key], res["this"][key]
+        paired[name + "_diff_ms"] = [(t[2 * r] + t[2 * r + 1] -
+                                      p[2 * r] - p[2 * r + 1]) / 2
+                                     for r in range(rounds)]
+        paired[name + "_parent_spread_ms"] = [abs(p[2 * r] - p[2 * r + 1])
+                                              for r in range(rounds)]
+    log(dict(phase="ab_paired", rounds=rounds, **paired,
+             k2_builds_differ=not torch.equal(k2_main["parent"],
+                                              k2_main["this"]),
+             k2_wrong_turns=wrong))
+    return wrong
 
 
 def main() -> int:
@@ -287,11 +295,15 @@ def main() -> int:
     for r, (cam, w) in cs.serve_renders(view, scene, 1024).items():
         sp = cs.serve_render_inputs(model, cam, w)
         k1_inputs["serve_" + r] = (sp.pay, sp.tstart, sp.cnt, w // 16)
-    order = (["parent"] if parent_csrc else []) + ["this"] + list(VARIANTS)
-    bad = time_kernels(libs, order, k1_inputs, train_calls)
+    order = (["parent"] if parent_csrc else []) + ["this"]
+    bad, k2_main = time_kernels(libs, order, k1_inputs, train_calls)
+    k2_probe = train_calls["main"]
     del k1_inputs, train_calls
     if parent_csrc:
-        end_to_end(libs, tr, model, view, scene, shading)
+        wrong = end_to_end(libs, tr, model, view, scene, shading, k2_probe,
+                           k2_main)
+        if wrong:
+            bad["end_to_end_k2_not_the_turns_build"] = wrong
     os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
     with open(args.out, "w") as f:
         json.dump(RECORDS, f, indent=1)

@@ -13,7 +13,8 @@ device it exits with code 1 before doing anything.
 
 Phases (the fused route's, 1-6, run first, in the order they had before
 the dense routes were added, so that their times stay comparable):
-  1. card name and power limit (nvidia-smi), kernel build time;
+  1. card name and power limit (nvidia-smi), kernel build time, ptxas's
+     register report; no kernel may spill;
   2. K1 (csrc/fused_blend_fwd.cu) against fused_blend_fwd_plain on three
      256x256 scenes of 20k seeded Gaussians — altitudes of both signs, the
      same with tile_cull, and a dense scene whose pixels saturate (the early
@@ -59,20 +60,24 @@ the dense routes were added, so that their times stay comparable):
   7. K4 (csrc/blend_tiles_fwd.cu, blend_tiles_bwd.cu) against its plain
      versions on packed tiles of three seeds with random masks, K 256 and
      1024: channels 0-4 atol 2e-4, final_t 2e-5, n_contrib exact; the
-     backward per row <= 2e-4 of the row's largest value and bitwise
-     deterministic; and one case whose masks end early, as a render's do;
+     backward per row <= 2e-4 of the row's largest value, bitwise
+     deterministic, zero in rows 11-15 and past each tile's walk; and two
+     cases whose masks end early, as a render's do (K 1024 and 700);
   8. the CLI's fast route (sorted binning, K4) in training, on the scene of
      phase 5: capacities bucketed (RasterizeConfig.bucketed, the JAX
      Trainer's rule) from one untimed step's demand, 2 warm-up
      and 10 timed steps, 3 K4 forward and 3 K4 backward launches per step
      and none of K1/K2/K3, no render clipped, every metric finite, every
-     leaf moved, peak memory; one profiled step; K4 at the main render's
-     captured inputs (times, plain times, bounds);
+     leaf moved, peak memory; one profiled step; K4 forward and backward
+     at each of the three renders' captured inputs of one step (main, sun,
+     random camera), at the tolerances of phase 7, with their times, the
+     plain versions' and their bounds, and their sums over the step;
   9. the serving path on gather + use_pallas at 1,000,000 Gaussians and
      1024x1024: 2 K4 launches per render_view_full and 1 per nadir_dsm,
      median of 3 runs after one warm-up, the serve checks of phase 3; K4
      forward against its plain version at each of the three renders' exact
-     tables (captured from one more run), at the tolerances of phase 7;
+     tables (captured from one more run), at the tolerances of phase 7,
+     with its time and bound there;
  10. the safe route (gather, the plain dense blend) in one training step at
      256x256 with about 20k Gaussians, on the card and on the CPU from the
      same state and draws: loss terms within rel 1e-4, every gradient
@@ -85,6 +90,7 @@ from __future__ import annotations
 import gc
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -95,6 +101,7 @@ import numpy as np
 H100_BYTES_PER_S = 3.35e12  # HBM3, H100 SXM data sheet
 H100_FP32_FLOPS = 67e12  # FP32 outside the tensor cores, H100 SXM
 ATOL_CH, ATOL_T = 2e-4, 2e-5
+FIELDS = ("xyz", "features_dc", "scaling", "rotation", "opacity")  # leaves
 
 CARD = {}
 
@@ -420,10 +427,18 @@ def phase_build():
     names = [b[0] for b in cuda_build.build_all()]
     for name in names:
         cuda_build.load(name)
+    # ptxas's report, from this build or kept beside an earlier one
+    logs = {n: cuda_build.build_logs.get(n, "") for n in names}
+    spills = {n: sum(int(b) for b in re.findall(
+        r"(\d+) bytes spill (?:stores|loads)", text))
+        for n, text in logs.items()}
     log(dict(phase="build", kernels=names,
-             seconds=time.perf_counter() - t0,
-             ptxas={n: cuda_build.build_logs.get(n, "cached").strip()[-600:]
-                    for n in names}, **CARD))
+             seconds=time.perf_counter() - t0, spill_bytes=spills,
+             ptxas={n: text.strip()[-600:] for n, text in logs.items()},
+             **CARD))
+    if any(spills.values()) or not all("spill" in t for t in logs.values()):
+        raise AssertionError(f"ptxas spilled registers, or its report is "
+                             f"missing: {spills}")
 
 
 def phase_k1_small(device):
@@ -771,8 +786,7 @@ def phase_train(device, scene, scene_s, width=1024, warmup=2, timed=10):
     tr = Trainer(cfg, scene, rcfg, device=device).setup()
     torch.cuda.synchronize()
     setup_s = time.perf_counter() - t0
-    start = {f: getattr(tr.model, f).detach().clone()
-             for f in ("xyz", "features_dc", "scaling", "rotation", "opacity")}
+    start = {f: getattr(tr.model, f).detach().clone() for f in FIELDS}
     alive0 = int(tr.model.alive.sum())
 
     tr.train(warmup, progress=False)
@@ -1069,7 +1083,8 @@ def compare_k4(data, grid_x, gout=None, seed=0):
     import torch
 
     from eogs2_tpu_torch.ops.blend_cuda import (blend_backward,
-                                                blend_backward_plain)
+                                                blend_backward_plain,
+                                                slots_in_use)
 
     rep, out = compare_k4_fwd(data, grid_x)
     if gout is None:
@@ -1084,13 +1099,20 @@ def compare_k4(data, grid_x, gout=None, seed=0):
     live = scale > 0
     err_rows = ((g[:, :11] - g_ref[:, :11]).abs().amax(dim=(0, 2))
                 / scale.clamp_min(1e-30))
+    # slots past each tile's walk (its deepest n_contrib, its last pair)
+    n_walk = torch.minimum(gout[..., 7].amax(dim=1).long(),
+                           slots_in_use(data))
+    past = (torch.arange(data.shape[2], device=data.device)[None, :]
+            >= n_walk[:, None])
     rep.update(bwd_max_row_rel_err=float(err_rows[live].max()),
                bwd_max_abs_err=float((g - g_ref).abs().max()),
-               bwd_deterministic=bool(torch.equal(g, g2)))
+               bwd_deterministic=bool(torch.equal(g, g2)),
+               bwd_unreached_slots=int(past.sum()))
     ok = (rep["bwd_max_row_rel_err"] <= K4_ROW_TOL
           and rep["bwd_deterministic"]
           and bool((g[:, 11:] == 0).all()) and bool((g[:, :11][:, ~live] == 0)
                                                      .all())
+          and bool((g.transpose(1, 2)[past] == 0).all())
           and bool(torch.isfinite(g).all()))
     if not ok:
         raise AssertionError(f"K4 disagrees with its plain version: {rep}")
@@ -1101,6 +1123,7 @@ def phase_k4_small(device):
     worst = {}
     cases = [(k, seed, False) for k in (256, 1024) for seed in (0, 1, 2)]
     cases += [(1024, 3, True)]  # masks that end early, as in a render
+    cases += [(700, 4, True)]  # the backward's lowest batch partial
     for k, seed, prefix in cases:
         rep, _, _ = compare_k4(packed_tiles(device, 48, k, seed, 8, prefix),
                                8, seed=seed)
@@ -1275,6 +1298,29 @@ class record_renders:
         return int(m[0]), int(m[1])
 
 
+def fast_trainer(scene, device, iterations):
+    """A Trainer on the CLI's fast route (sorted binning, K4), sized by
+    the JAX Trainer's rule: one untimed step (iteration 1) with no emission
+    clamp and a small K, whose renders' demand statistics count before the
+    K clamp, then RasterizeConfig.bucketed of that demand. Returns
+    (trainer, config, demand, the leaves before the sizing step)."""
+    from eogs2_tpu_torch.rasterizer import RasterizeConfig
+    from eogs2_tpu_torch.train import Trainer
+
+    size_cfg = RasterizeConfig(binning_mode="sorted", use_pallas=True,
+                               tile_capacity=128,
+                               max_tiles_per_gaussian=1 << 20)
+    tr = Trainer(train_recipe(iterations), scene, size_cfg,
+                 device=device).setup()
+    start = {f: getattr(tr.model, f).detach().clone() for f in FIELDS}
+    with record_renders() as rec:
+        tr.train_step(1)
+    demand = rec.maxima()
+    rcfg = size_cfg.bucketed(*demand)
+    tr.set_raster_cfg(rcfg)
+    return tr, rcfg, demand, start
+
+
 def phase_train_fast(device, scene, width=1024, warmup=2, timed=10):
     """The CLI's fast route (sorted binning, K4) in training."""
     import torch
@@ -1287,25 +1333,12 @@ def phase_train_fast(device, scene, width=1024, warmup=2, timed=10):
                                                   fused_blend_bwd_rows,
                                                   fused_blend_fwd,
                                                   fused_blend_fwd_rows)
-    from eogs2_tpu_torch.rasterizer import RasterizeConfig
-    from eogs2_tpu_torch.train import Trainer, mean_metrics
+    from eogs2_tpu_torch.train import mean_metrics
 
-    cfg = train_recipe(warmup + timed + 1)
-    # the untimed sizing step: no emission clamp, a small K (its renders'
-    # demand statistics count before the K clamp)
-    size_cfg = RasterizeConfig(binning_mode="sorted", use_pallas=True,
-                               tile_capacity=128,
-                               max_tiles_per_gaussian=1 << 20)
     t0 = time.perf_counter()
-    tr = Trainer(cfg, scene, size_cfg, device=device).setup()
-    start = {f: getattr(tr.model, f).detach().clone()
-             for f in ("xyz", "features_dc", "scaling", "rotation", "opacity")}
-    with record_renders() as rec:
-        tr.train_step(1)
-    demand = rec.maxima()
-    rcfg = size_cfg.bucketed(*demand)  # the JAX Trainer's sizing rule
+    tr, rcfg, demand, start = fast_trainer(scene, device,
+                                           warmup + timed + 1)
     k, tcap = rcfg.tile_capacity, rcfg.max_tiles_per_gaussian
-    tr.set_raster_cfg(rcfg)
     for it in range(2, warmup + 2):
         tr.train_step(it)
     torch.cuda.synchronize()
@@ -1359,50 +1392,58 @@ def phase_train_fast(device, scene, width=1024, warmup=2, timed=10):
              **profile_run(lambda: tr.train_step(warmup + timed + 2)),
              **CARD))
 
-    # K4 at the main render's exact inputs of one step
+    # K4 at each render's exact inputs of one step (main, sun, random)
     with capture_k4_calls() as cap:
         tr.train_step(warmup + timed + 3)
         torch.cuda.synchronize()
-    main_ptr = cap.fwd[0][0].data_ptr()  # the main view renders first
-    data, gout, gx = next(c for c in cap.bwd if c[0].data_ptr() == main_ptr)
-    cap.fwd.clear()  # the other renders' tables (the sun's is the largest)
-    cap.bwd.clear()
-    del cap, tr
-    rep, out, _ = compare_k4(data, gx, gout=gout)
-    bounds, work = k4_bounds(data, out, gx)
-    fwd = dict(ms=time_cuda(lambda: blend_forward(data, gx), 10),
-               plain_ms=time_cuda(lambda: blend_forward_plain(data, gx), 1),
-               **bounds["fwd"])
-    bwd = dict(ms=time_cuda(lambda: blend_backward(data, gout, gx), 10),
-               plain_ms=time_cuda(
-                   lambda: blend_backward_plain(data, gout, gx), 1),
-               **bounds["bwd"])
-    log(dict(phase="k4_at_train_shape", render="main", width=width,
-             height=width, pairs=int(data[:, 11].sum()), **rep, work=work,
-             fwd=fwd,
-             bwd=bwd, **CARD))
-    return rep, fwd, bwd, launches[0], launches[1]
+    bwd_of = {c[0].data_ptr(): c for c in cap.bwd}
+    calls = [bwd_of[d.data_ptr()] for d, _ in cap.fwd]  # in render order
+    del cap, bwd_of, tr
+    if len(calls) != 3:
+        raise AssertionError(f"captured {len(calls)} K4 renders, want 3")
+    reps, fwd_at, bwd_at = {}, {}, {}
+    for name in TRAIN_RENDERS:
+        data, gout, gx = calls.pop(0)  # drop each table once it is done
+        rep, out, _ = compare_k4(data, gx, gout=gout)
+        bounds, work = k4_bounds(data, out, gx)
+        fwd = dict(ms=time_cuda(lambda: blend_forward(data, gx), 10),
+                   plain_ms=time_cuda(lambda: blend_forward_plain(data, gx),
+                                      1),
+                   **bounds["fwd"])
+        bwd = dict(ms=time_cuda(lambda: blend_backward(data, gout, gx), 10),
+                   plain_ms=time_cuda(
+                       lambda: blend_backward_plain(data, gout, gx), 1),
+                   **bounds["bwd"])
+        log(dict(phase="k4_at_train_shape", render=name, width=16 * gx,
+                 height=data.shape[0] // gx * 16,
+                 pairs=int(data[:, 11].sum()), **rep, work=work, fwd=fwd,
+                 bwd=bwd, **CARD))
+        reps[name], fwd_at[name], bwd_at[name] = rep, fwd, bwd
+        del data, gout, out
+    log(dict(phase="k4_per_step", renders=list(TRAIN_RENDERS),
+             **{f"{k}_{key}": sum(r[key] for r in at.values())
+                for k, at in (("k4_fwd", fwd_at), ("k4_bwd", bwd_at))
+                for key in ("ms", "bound_ms", "plain_ms")},
+             k4_bwd_padded_table_write_ms=sum(
+                 r["padded_table_write_ms"] for r in bwd_at.values()),
+             **CARD))
+    return reps, fwd_at, bwd_at, launches[0], launches[1]
 
 
-def phase_serve_dense(device, n=1_000_000, width=1024):
-    """The serving path on gather + use_pallas (K4 forward)."""
+def dense_serve_cfg(model, view, scene, width):
+    """gather + use_pallas for serving, its capacities bucketed from the
+    three renders' demand (view, sun, Nadir), so that nothing clips.
+    Returns (config, demand per render)."""
     import torch
 
     from eogs2_tpu_torch.ops.binning import bin_gaussians
-    from eogs2_tpu_torch.ops.blend_cuda import blend_forward
     from eogs2_tpu_torch.ops.projection import (compute_cov2d_direct,
                                                 preprocess_gaussians)
-    from eogs2_tpu_torch.pipeline import nadir_dsm, render_view_full
     from eogs2_tpu_torch.rasterizer import RasterizeConfig
 
-    t0 = time.perf_counter()
-    model, view, scene, shading = serve_scene(n, width, seed=0, device=device)
-    # capacities from the three renders' demand, so that nothing clips
-    sun_cam, _ = view.sun_camera(f=2)
     demand = []
     with torch.no_grad():
-        for cam, w in ((view, width), (sun_cam, 2 * width),
-                       (scene.test_views[0].camera, width)):
+        for cam, w in serve_renders(view, scene, width).values():
             aff = cam.resize_canvas(w, w).affine
             cov2d = compute_cov2d_direct(model.get_scaling(), model.rotation,
                                          aff, w, w)
@@ -1414,6 +1455,19 @@ def phase_serve_dense(device, n=1_000_000, width=1024):
     cfg = RasterizeConfig(binning_mode="gather", use_pallas=True,
                           eogs_features=True).bucketed(
         max(d[0] for d in demand), max(d[1] for d in demand))
+    return cfg, demand
+
+
+def phase_serve_dense(device, n=1_000_000, width=1024):
+    """The serving path on gather + use_pallas (K4 forward)."""
+    import torch
+
+    from eogs2_tpu_torch.ops.blend_cuda import blend_forward
+    from eogs2_tpu_torch.pipeline import nadir_dsm, render_view_full
+
+    t0 = time.perf_counter()
+    model, view, scene, shading = serve_scene(n, width, seed=0, device=device)
+    cfg, demand = dense_serve_cfg(model, view, scene, width)
     k, tcap = cfg.tile_capacity, cfg.max_tiles_per_gaussian
     torch.cuda.synchronize()
     setup_s = time.perf_counter() - t0
@@ -1450,16 +1504,20 @@ def phase_serve_dense(device, n=1_000_000, width=1024):
     del cap
     if len(tables) != 3:
         raise AssertionError(f"captured {len(tables)} K4 tables, want 3")
-    worst = {}
-    for name, (data, gx) in zip(("view", "sun", "nadir"), tables):
-        rep, _ = compare_k4_fwd(data, gx)
+    worst, at = {}, {}
+    for name in ("view", "sun", "nadir"):
+        data, gx = tables.pop(0)
+        rep, k4_out = compare_k4_fwd(data, gx)
+        fwd = dict(ms=time_cuda(lambda: blend_forward(data, gx), 10),
+                   **k4_bounds(data, k4_out, gx)[0]["fwd"])
         log(dict(phase="k4_at_serve_shape", render=name, width=16 * gx,
                  height=data.shape[0] // gx * 16,
-                 pairs=int(data[:, 11].sum()), **rep, **CARD))
+                 pairs=int(data[:, 11].sum()), **rep, fwd=fwd, **CARD))
         for key, v in rep.items():
             if "err" in key or "mismatch" in key:
                 worst[key] = max(worst.get(key, 0), v)
-    del tables, data
+        at[name] = fwd
+        del data, k4_out
 
     log(dict(phase="serve_dense", gaussians=n, width=width, height=width,
              sun_width=2 * width,
@@ -1471,7 +1529,7 @@ def phase_serve_dense(device, n=1_000_000, width=1024):
              peak_mem_gib=peak_gib, k4_launches_render_view_full=launches_rvf,
              k4_launches_nadir_dsm=launches_nadir,
              **check_serve_outputs(out, nout, dsm, scene, width), **CARD))
-    return launches_rvf + launches_nadir, worst
+    return launches_rvf + launches_nadir, worst, at
 
 
 def safe_trainer(scene, device, seed=1):
@@ -1523,9 +1581,7 @@ def safe_step(tr, bg, shear, iteration=5, view=1):
     metrics = step(tr.model, tr.shading, view, torch.tensor(bg, device=dev),
                    torch.tensor(shear, device=dev),
                    tt.make_gates(tr.cfg, iteration, tr.init_count))
-    grads = {f: getattr(tr.model, f).grad.cpu()
-             for f in ("xyz", "features_dc", "scaling", "rotation",
-                       "opacity")}
+    grads = {f: getattr(tr.model, f).grad.cpu() for f in FIELDS}
     return {k: float(v) for k, v in metrics.items()}, grads
 
 
@@ -1614,11 +1670,11 @@ def main() -> int:
     gc.collect()  # the trainer's reference cycles hold device memory
     k3_small_err = phase_k3_small(device)
     k4_small = phase_k4_small(device)
-    k4, k4_fwd, k4_bwd, k4f_launches, k4b_launches = phase_train_fast(
+    k4_at, k4f_at, k4b_at, k4f_launches, k4b_launches = phase_train_fast(
         device, scene)
     del scene
     gc.collect()
-    k4_serve_launches, k4_serve = phase_serve_dense(device)
+    k4_serve_launches, k4_serve, k4_serve_at = phase_serve_dense(device)
     phase_safe_small(device)
 
     view = per_render["view"]
@@ -1664,20 +1720,28 @@ def main() -> int:
               max_row_rel_err=k2["max_row_rel_err"],
               bitwise_equal_k2=k3["bwd_bitwise_equal_k2"]),
         entry("blend_forward (K4 forward)", "blend_tiles_fwd.cu",
-              "blend_pallas.py:134", k4f_launches + k4_serve_launches, k4_fwd,
-              max_abs_err=max(k4["max_abs_err_ch0_4"],
-                              k4["max_abs_err_final_t"],
-                              k4_small["max_abs_err_ch0_4"],
+              "blend_pallas.py:134", k4f_launches + k4_serve_launches,
+              k4f_at["main"],
+              max_abs_err=max(k4_small["max_abs_err_ch0_4"],
                               k4_small["max_abs_err_final_t"],
                               k4_serve["max_abs_err_ch0_4"],
-                              k4_serve["max_abs_err_final_t"]),
-              n_contrib_mismatches=k4["n_contrib_mismatches"]
-              + k4_serve["n_contrib_mismatches"]),
+                              k4_serve["max_abs_err_final_t"],
+                              *(max(r["max_abs_err_ch0_4"],
+                                    r["max_abs_err_final_t"])
+                                for r in k4_at.values())),
+              n_contrib_mismatches=k4_serve["n_contrib_mismatches"]
+              + sum(r["n_contrib_mismatches"] for r in k4_at.values()),
+              **per_step(k4f_at),
+              serve_ms={k: r["ms"] for k, r in k4_serve_at.items()},
+              serve_bound_ms={k: r["bound_ms"]
+                              for k, r in k4_serve_at.items()}),
         entry("blend_backward (K4 backward)", "blend_tiles_bwd.cu",
-              "blend_pallas.py:194", k4b_launches, k4_bwd,
-              max_abs_err=k4["bwd_max_abs_err"],
-              max_row_rel_err=max(k4["bwd_max_row_rel_err"],
-                                  k4_small["bwd_max_row_rel_err"])),
+              "blend_pallas.py:194", k4b_launches, k4b_at["main"],
+              max_abs_err=max(r["bwd_max_abs_err"] for r in k4_at.values()),
+              max_row_rel_err=max(k4_small["bwd_max_row_rel_err"],
+                                  *(r["bwd_max_row_rel_err"]
+                                    for r in k4_at.values())),
+              **per_step(k4b_at)),
     ]})
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,8 +1,9 @@
 // What the port's blend kernels (K1-K4) share: the tile shape, the skip and
-// stop constants of the CUDA reference's renderCUDA (forward.cu), and the
-// staging of fused-route pairs into shared memory in either payload layout.
-// ops/cuda_build.py hashes this header with every source that includes it,
-// so an edit here rebuilds them all.
+// stop constants of the CUDA reference's renderCUDA (forward.cu), the
+// staging of fused-route pairs and of K4's packed slots into shared memory,
+// and the backward kernels' warp reduce-scatter. ops/cuda_build.py hashes
+// this header with every source that includes it, so an edit here rebuilds
+// them all.
 
 #pragma once
 
@@ -19,9 +20,8 @@
 namespace eogs2 {
 
 constexpr int TILE = 16;
-constexpr int PIX = TILE * TILE;  // pixels per tile (K4: threads per block)
+constexpr int PIX = TILE * TILE;  // pixels per tile
 constexpr int NC = 5;             // feature channels
-constexpr int NWARP = PIX / 32;
 constexpr unsigned FULL = 0xffffffffu;
 
 // fused-route payload: 11 fields per pair (mx, my, conic a, b, c, opacity,
@@ -144,15 +144,155 @@ __device__ __forceinline__ int block_max(int v, int* smem) {
   return m;
 }
 
-// K4's packed table [T, 16, K]: the number of slots up to the tile's last
-// pair (mask row 11 set), so the kernels skip the trailing empty slots. An
-// empty slot changes nothing (alpha 0, log1p(-0) = 0) and stays live.
+// The backward kernels (K2, K4) sum 11 values per pair over a warp's pixels
+// by a reduce-scatter butterfly: at the shuffle of offset o a lane keeps half
+// of its values (chosen by lane bit o) and sends the other half, so the 11
+// values, padded to NV = 16, take 8 + 4 + 2 + 1 + 1 = 16 shuffles instead of
+// 55, and each field's warp sum lands on its own pair of lanes.
+constexpr int NV = 16;
+
+// One step of recursive halving: lanes l and l ^ 2H swap halves of v[0, 2H)
+// so that each keeps the sum of one half, selected by its lane bit 2H. H is
+// a template parameter so that every index is a constant and v stays in
+// registers.
+template <int H>
+__device__ __forceinline__ void halve(float (&v)[NV], int lane) {
+  const bool upper = lane & (2 * H);
+#pragma unroll
+  for (int i = 0; i < H; ++i) {
+    const float send = upper ? v[i] : v[i + H];
+    const float keep = upper ? v[i + H] : v[i];
+    v[i] = keep + __shfl_xor_sync(FULL, send, 2 * H);
+  }
+}
+
+// The warp sum of field (lane >> 1) of v, on every lane: 16 shuffles.
+// v is clobbered.
+__device__ __forceinline__ float warp_reduce_scatter(float (&v)[NV], int lane) {
+  halve<8>(v, lane);
+  halve<4>(v, lane);
+  halve<2>(v, lane);
+  halve<1>(v, lane);
+  return v[0] + __shfl_xor_sync(FULL, v[0], 1);
+}
+
+// ---- K4: the dense routes' packed table ------------------------------------
+//
+// data [T, 16, K] float32: field f of slot k of a tile at tile * 16 K + f K
+// + k, rows 0-10 the fused route's 11 fields, row 11 the mask (1 = a pair),
+// rows 12-15 unused. A tile's rows are the column layout with stride K.
+
+// The number of slots up to the tile's last pair (mask row set), so the
+// kernels skip the trailing empty slots: an empty slot changes nothing
+// (alpha 0, log1p(-0) = 0) and stays live. 16-byte loads where the row is
+// aligned (K a multiple of 4). Every thread of the NT-thread block calls it.
 __device__ __forceinline__ int slots_in_use(const float* __restrict__ mask,
                                             int K, int* smem) {
-  int last = 0;
-  for (int k = threadIdx.x; k < K; k += PIX)
+  int last = 0;  // each thread's slots rise, so its last set one wins
+  int k = 0;
+  if ((reinterpret_cast<unsigned long long>(mask) & 15) == 0) {
+    const float4* m4 = reinterpret_cast<const float4*>(mask);
+    for (int i = threadIdx.x; i < K / 4; i += NT) {
+      const float4 m = m4[i];
+      if (m.w > 0.5f) last = 4 * i + 4;
+      else if (m.z > 0.5f) last = 4 * i + 3;
+      else if (m.y > 0.5f) last = 4 * i + 2;
+      else if (m.x > 0.5f) last = 4 * i + 1;
+    }
+    k = K / 4 * 4;
+  }
+  for (k += threadIdx.x; k < K; k += NT)
     if (mask[k] > 0.5f) last = k + 1;
-  return block_max(last, smem);
+  return block_max<NT>(last, smem);
+}
+
+// Copy slots [lo, lo + n) of a tile (n <= BATCH) into buf[0, n): thread t
+// copies slots t, t + NT, ..., 12 rows each (the 11 fields as K1 copies a
+// column payload with stride K, then the mask into r2.w), and commits one
+// cp.async group.
+__device__ __forceinline__ void stage_slots(Pair* buf,
+                                            const float* __restrict__ tile,
+                                            int K, int lo, int n) {
+#pragma unroll
+  for (int i = 0; i < BATCH / NT; ++i) {
+    const int k = threadIdx.x + i * NT;
+    if (k < n) {
+      copy_pair_async<false>(buf + k, tile, K, lo + k);
+      __pipeline_memcpy_async(&buf[k].r2.w, tile + (long long)NF * K + lo + k,
+                              4);
+    }
+  }
+  __pipeline_commit();
+}
+
+// The warps whose 8 x 8 pixel block (thread_pixel: warp w covers tile-local
+// x in [8 (w % 2), 8 (w % 2) + 8), y in [8 (w / 2), 8 (w / 2) + 8)) may hold
+// a pixel that passes the cheap keep test of a slot, power <= 0 and
+// !(power < cut): bit w for warp w. With M = [[a, b], [b, c]] and Q = d^T M
+// d, power = -Q / 2, so a passing pixel lies in the ellipse Q <= -2 cut,
+// whose half-widths are sqrt(-2 cut c / det) and sqrt(-2 cut a / det),
+// det = ac - b^2. Computed in double and widened, so that no block whose
+// pixels could pass by the float arithmetic of pair_power is left out:
+// that arithmetic errs by at most ~7 ulp of (a + c)^2 / det times |power|
+// (a few 1e-7 relative of Q), and the ellipse is grown by 1e-5 of that
+// ratio, plus 1e-2 px. A skipped slot fails the cheap test at every pixel
+// of the block, so skipping it decides nothing. Where the region is
+// unbounded or ill-conditioned (not positive definite, (a + c)^2 / det >
+// 1e4, a NaN cut: every pixel passes it, an infinite one) every block is
+// marked; where no power can pass (cut > 0, +inf for an empty slot) none.
+// A NaN centre marks none: its power is NaN at every pixel.
+__device__ __forceinline__ unsigned slot_blocks(float4 r0, float c, float cut,
+                                                float ox, float oy) {
+  if (!(cut <= 0.0f)) return cut > 0.0f ? 0u : 0xfu;
+  const double a = r0.z, b = r0.w, cc = c;
+  const double det = a * cc - b * b;
+  if (!(a > 0.0 && det > 0.0)) return 0xfu;
+  const double inv_det = 1.0 / det;
+  const double r2 = -2.0 * (double)cut;
+  const double cond = (a + cc) * (a + cc) * inv_det;
+  if (!(cond <= 1e4 && r2 < 1e300)) return 0xfu;
+  const double grow = r2 * (1.0 + 1e-5 * cond) * inv_det;
+  const double hx = sqrt(grow * cc) + 1e-2, hy = sqrt(grow * a) + 1e-2;
+  const double mx = (double)r0.x - ox, my = (double)r0.y - oy;
+  unsigned bits = 0;
+#pragma unroll
+  for (int w = 0; w < NT / 32; ++w) {
+    const double bx = 8 * (w % 2), by = 8 * (w / 2);
+    if (mx - hx <= bx + 7 && mx + hx >= bx && my - hy <= by + 7 &&
+        my + hy >= by)
+      bits |= 1u << w;
+  }
+  return bits;
+}
+
+// K4's finish_batch: wait for this thread's copies and rearrange its slots
+// into Pair's order with the mask folded into the alpha cut: +inf for an
+// empty slot, whose power then never passes !(power < cut), whatever its
+// fields hold (NaN power fails power <= 0 first). Each slot's slot_blocks
+// for the tile at (ox, oy) goes to blocks[k]. A barrier must follow.
+__device__ __forceinline__ void finish_slots(Pair* buf, unsigned char* blocks,
+                                             int n, float ox, float oy) {
+  __pipeline_wait_prior(0);
+#pragma unroll
+  for (int i = 0; i < BATCH / NT; ++i) {
+    const int k = threadIdx.x + i * NT;
+    if (k < n) {
+      // (c, op, f0, f1), (f2, f3, f4, mask)
+      const float4 r0 = buf[k].r0, r1 = buf[k].r1, r2 = buf[k].r2;
+      const float cut =
+          r2.w > 0.5f ? alpha_cut(r1.y) : __int_as_float(0x7f800000);  // +inf
+      buf[k].r1 = make_float4(r1.x, cut, r1.y, r1.z);
+      buf[k].r2 = make_float4(r1.w, r2.x, r2.y, r2.z);
+      blocks[k] = (unsigned char)slot_blocks(r0, r1.x, cut, ox, oy);
+    }
+  }
+}
+
+// K4's alpha, min(0.99, op G) with a NaN kept NaN, as torch.clamp_max keeps
+// it in the plain versions (fminf would give 0.99): a NaN opacity is then
+// never kept, since NaN >= 1/255 is false.
+__device__ __forceinline__ float clamp_alpha(float opG) {
+  return opG > ALPHA_MAX ? ALPHA_MAX : opG;
 }
 
 }  // namespace eogs2

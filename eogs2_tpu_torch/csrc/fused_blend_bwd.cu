@@ -93,33 +93,7 @@ namespace {
 using namespace eogs2;
 
 constexpr int SUB = 32;  // pairs per block-level reduction round (a mask)
-constexpr int NV = 16;   // the 11 per-pair sums padded for the reduce-scatter
 constexpr int U = 4;     // pairs whose cheap test runs at once (divides SUB)
-
-// One step of recursive halving: lanes l and l ^ 2H swap halves of v[0, 2H)
-// so that each keeps the sum of one half, selected by its lane bit 2H. H is
-// a template parameter so that every index is a constant and v stays in
-// registers.
-template <int H>
-__device__ __forceinline__ void halve(float (&v)[NV], int lane) {
-  const bool upper = lane & (2 * H);
-#pragma unroll
-  for (int i = 0; i < H; ++i) {
-    const float send = upper ? v[i] : v[i + H];
-    const float keep = upper ? v[i + H] : v[i];
-    v[i] = keep + __shfl_xor_sync(FULL, send, 2 * H);
-  }
-}
-
-// The warp sum of field (lane >> 1) of v, on every lane: 16 shuffles.
-// v is clobbered.
-__device__ __forceinline__ float warp_reduce_scatter(float (&v)[NV], int lane) {
-  halve<8>(v, lane);
-  halve<4>(v, lane);
-  halve<2>(v, lane);
-  halve<1>(v, lane);
-  return v[0] + __shfl_xor_sync(FULL, v[0], 1);
-}
 
 template <bool ROWS>
 __global__ void __launch_bounds__(NT)

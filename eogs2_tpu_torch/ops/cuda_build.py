@@ -86,18 +86,30 @@ def library_path(name: str, csrc: str = CSRC) -> str:
 
 
 def _build(name: str, csrc: str = CSRC) -> str:
+    """Build csrc/<name>.cu unless its library exists; nvcc's output goes to
+    build_logs and beside the library (lib<name>-<hash>.log), whence a later
+    process that finds the library built reads it."""
     so = library_path(name, csrc)
+    key = _key(name, csrc)
+    log = so[:-3] + ".log"
     if os.path.exists(so):
+        if key not in build_logs and os.path.exists(log):
+            with open(log) as f:
+                build_logs[key] = f.read()
         return so
     os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{so}.{os.getpid()}.tmp"
-    proc = subprocess.run(nvcc_command(name, tmp, csrc),
+    # one name per process and thread: two builds of equal sources (another
+    # tree's copy) may run at once, and the last to finish wins
+    tag = f"{os.getpid()}.{threading.get_ident()}.tmp"
+    proc = subprocess.run(nvcc_command(name, f"{so}.{tag}", csrc),
                           capture_output=True, text=True)
-    key = _key(name, csrc)
     build_logs[key] = proc.stdout + proc.stderr
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed on {name}.cu:\n{build_logs[key]}")
-    os.replace(tmp, so)  # atomic: a concurrent loader sees all or nothing
+    with open(f"{log}.{tag}", "w") as f:
+        f.write(build_logs[key])
+    os.replace(f"{log}.{tag}", log)
+    os.replace(f"{so}.{tag}", so)  # atomic: a loader sees all or nothing
     return so
 
 

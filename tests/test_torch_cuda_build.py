@@ -78,6 +78,55 @@ def test_entry_looks_up_the_library_at_every_call(monkeypatch):
     assert again.tag == "other"
 
 
+def test_build_log_survives_a_cached_build(no_nvcc, monkeypatch, tmp_path):
+    """nvcc's report (ptxas's registers and spills) is kept beside the
+    library, so a process that finds the library built still has it."""
+    runs = []
+
+    def fake_nvcc(cmd, **kw):
+        runs.append(cmd)
+        open(cmd[cmd.index("-o") + 1], "w").close()
+        return types.SimpleNamespace(returncode=0, stdout="ptxas: 0 bytes "
+                                     "spill stores", stderr="")
+
+    monkeypatch.setattr(cuda_build, "BUILD_DIR", str(tmp_path))
+    monkeypatch.setattr(cuda_build, "build_logs", {})
+    monkeypatch.setattr(cuda_build.subprocess, "run", fake_nvcc)
+    so = cuda_build._build("blend_tiles_bwd")
+    assert os.path.exists(so) and len(runs) == 1
+    assert "spill" in cuda_build.build_logs["blend_tiles_bwd"]
+    cuda_build.build_logs.clear()
+    assert cuda_build._build("blend_tiles_bwd") == so and len(runs) == 1
+    assert "spill" in cuda_build.build_logs["blend_tiles_bwd"]
+
+
+def test_equal_sources_build_at_once(no_nvcc, monkeypatch, tmp_path):
+    """Two trees with the same source hash to one library; building both
+    at once (build_all's threads) must not collide on a temporary file."""
+    import time
+
+    def slow_nvcc(cmd, **kw):
+        out = cmd[cmd.index("-o") + 1]
+        with open(out, "w") as f:
+            f.write("x")
+        time.sleep(0.2)
+        assert os.path.exists(out)  # nobody moved it meanwhile
+        return types.SimpleNamespace(returncode=0, stdout="", stderr="")
+
+    copy = tmp_path / "csrc"
+    shutil.copytree(cuda_build.CSRC, copy)
+    monkeypatch.setattr(cuda_build, "BUILD_DIR", str(tmp_path / "build"))
+    monkeypatch.setattr(cuda_build, "build_logs", {})
+    monkeypatch.setattr(cuda_build.subprocess, "run", slow_nvcc)
+    builds = [("blend_tiles_fwd",), ("blend_tiles_fwd", str(copy))]
+    assert cuda_build.library_path(*builds[0]) == \
+        cuda_build.library_path(*builds[1])
+    cuda_build.build_all(builds)
+    base = os.path.basename(cuda_build.library_path(*builds[0]))[:-3]
+    assert sorted(os.listdir(tmp_path / "build")) == [base + ".log",
+                                                      base + ".so"]
+
+
 def test_build_all_builds_every_source_by_default(monkeypatch):
     built = []
     monkeypatch.setattr(cuda_build, "_build", lambda *b: built.append(b))

@@ -22,7 +22,8 @@ import torch
 
 from eogs2_tpu_torch.ops.blend_cuda import (blend_backward,
                                             blend_backward_plain,
-                                            blend_forward, blend_forward_plain)
+                                            blend_forward, blend_forward_plain,
+                                            slots_in_use)
 from eogs2_tpu_torch.ops.fused_raster import (NF, fused_blend_bwd,
                                               fused_blend_bwd_plain,
                                               fused_blend_bwd_rows,
@@ -288,36 +289,108 @@ def _tiles(device, t, k, seed, grid_x, prefix=False):
     return torch.tensor(data, device=device)
 
 
+def _k4_case(device, case, k, seed, prefix):
+    """(data, grid_x, clean) for a K4 case: _tiles' random table, changed
+    as the case says; `clean` is the table the plain versions get (the same
+    but for the dirty case, whose empty slots it zeroes)."""
+    t, gx = (22, 11) if case == "grid_11x2" else (12, 4)
+    data = _tiles(device, t, k, seed, grid_x=gx, prefix=prefix)
+    rng = np.random.RandomState(100 + seed)
+    if case in ("full", "all_die_first_batch"):
+        data[:, 11] = 1.0
+    if case == "full":  # faint splats: pixels stay live over every batch
+        data[:, 5] = torch.tensor(rng.uniform(0.005, 0.05, (t, k)),
+                                  dtype=torch.float32)
+    elif case == "all_die_first_batch":  # broad, opaque: dead in a few slots
+        data[:, 2] = data[:, 4] = 1e-3
+        data[:, 3] = 0.0
+        data[:, 5] = 0.98
+    elif case == "empty_tile":
+        data[[1, 5], 11] = 0.0
+    elif case == "nan_power":
+        data[0, 2, 3] = float("nan")  # conic a of an unmasked slot
+        data[0, 11, 3] = 1.0
+    elif case == "zero_neg_nan_opacity":
+        data[:, 5, ::7] = 0.0
+        data[:, 5, 3::7] = -0.5
+        data[:, 5, 5::7] = float("nan")
+    clean = data
+    if case == "dirty_masked":  # empty slots holding NaN and 1e30
+        empty = data[:, 11] <= 0.5
+        clean = data.clone()
+        clean[:, :11] *= (~empty)[:, None, :]
+        for f, v in ((0, 1e30), (2, float("nan")), (5, float("nan")),
+                     (6, 1e30), (1, -1e30)):
+            data[:, f][empty] = v
+    return data, gx, clean
+
+
+_K4_CASES = ([("random", k, seed, prefix) for prefix in (False, True)
+              for k in (256, 1024) for seed in (0, 1, 2)]
+             + [("full", 1024, 0, False), ("full", 700, 1, False),
+                ("empty_tile", 256, 2, False), ("dirty_masked", 512, 3, False),
+                ("nan_power", 300, 4, False),
+                ("zero_neg_nan_opacity", 300, 5, False),
+                ("all_die_first_batch", 1024, 6, False),
+                ("grid_11x2", 300, 7, False)])
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("prefix", [False, True])
-@pytest.mark.parametrize("k", [256, 1024])
-@pytest.mark.parametrize("seed", [0, 1, 2])
-def test_k4_matches_plain(cuda, k, seed, prefix):
-    data = _tiles(cuda, 12, k, seed, grid_x=4, prefix=prefix)
+@pytest.mark.parametrize("case,k,seed,prefix", _K4_CASES)
+def test_k4_matches_plain(cuda, case, k, seed, prefix):
+    """K4 forward and backward against their plain versions: random masks
+    (prefix: each tile's first slots, as the dense view fills them), walks
+    over three and more 256-slot batches (the backward's lowest batch
+    partial at K = 700), empty tiles, empty slots holding NaN and 1e30, a
+    NaN power, opacity 0, negative and NaN (not kept: the plain version's
+    clamp keeps NaN), pixels that all die in the first batch, an 11 x 2
+    tile grid. The backward is bitwise deterministic and zero in rows 11-15
+    and past each tile's walk."""
+    data, gx, clean = _k4_case(cuda, case, k, seed, prefix)
     before = blend_forward.launches
-    out = blend_forward(data, 4)
+    out = blend_forward(data, gx)
     assert blend_forward.launches == before + 1
-    ref = blend_forward_plain(data, 4)
+    ref = blend_forward_plain(clean, gx)
     torch.cuda.synchronize()
     assert torch.isfinite(out).all()
     torch.testing.assert_close(out[..., :5], ref[..., :5], atol=2e-4, rtol=0)
     torch.testing.assert_close(out[..., 5], ref[..., 5], atol=2e-5, rtol=0)
     assert torch.equal(out[..., 6], ref[..., 6])
     assert (out[..., 7] == 0).all()
+    if case == "dirty_masked":  # what an empty slot holds changes nothing
+        assert torch.equal(out, blend_forward(clean, gx))
     gen = torch.Generator(device=cuda).manual_seed(seed)
     gout = torch.randn(out.shape, generator=gen, device=cuda)
     gout[..., 6:8] = out[..., 5:7]
     before = blend_backward.launches
-    g = blend_backward(data, gout, 4)
+    g = blend_backward(data, gout, gx)
     assert blend_backward.launches == before + 1
-    g_ref = blend_backward_plain(data, gout, 4)
+    g_ref = blend_backward_plain(clean, gout, gx)
     torch.cuda.synchronize()
     assert torch.isfinite(g).all() and (g[:, 11:] == 0).all()
+    # the plain version's rows of a NaN-power or NaN-opacity slot are NaN
+    # (0 * NaN); the kernel's are 0
+    finite = torch.isfinite(g_ref)
+    assert (g[~finite] == 0).all()
     for r in range(11):
-        err = (g[:, r] - g_ref[:, r]).abs().max()
-        assert float(err / g_ref[:, r].abs().max().clamp_min(1e-30)) < 2e-4
+        ok = finite[:, r]
+        err = (g[:, r][ok] - g_ref[:, r][ok]).abs().max()
+        assert float(err / g_ref[:, r][ok].abs().max().clamp_min(1e-30)) < 2e-4
+    n_walk = torch.minimum(out[..., 6].amax(dim=1).long(),
+                           slots_in_use(data))
+    past = torch.arange(k, device=cuda)[None, :] >= n_walk[:, None]
+    assert (g.transpose(1, 2)[past] == 0).all()
     # deterministic: no atomics, the same bits on a second launch
-    assert torch.equal(g, blend_backward(data, gout, 4))
+    assert torch.equal(g, blend_backward(data, gout, gx))
+    if case == "full":  # the walk spans three and more batches
+        assert (out[..., 6] == k).all()
+    elif case == "all_die_first_batch":
+        assert (out[..., 6] < 256).all()
+    elif case == "empty_tile":
+        assert (out[[1, 5], :, 5] == 1).all() and (out[[1, 5], :, 6] == k).all()
+        assert (g[[1, 5]] == 0).all()
+    elif case == "dirty_masked":
+        assert torch.equal(g, blend_backward(clean, gout, gx))
 
 
 @pytest.mark.cuda

@@ -1136,18 +1136,23 @@ def phase_k4_small(device):
 
 
 # K4 forward's FP32 operations (counted from csrc/blend_tiles_fwd.cu): per
-# slot-pixel evaluation of a pair (mask set) dx, dy, the power quadratic (9),
-# the power test, min, exp, op * G, the 0.99 clamp and the alpha test (17);
-# per empty slot walked, the mask test (1); per composite (kept, live)
-# log1p, its add, exp, the T_EPS test, 1 - alpha, the division, alpha * T
-# and a multiply-add for each of the 5 channels (17). exp and log1p count
-# as one operation each: the SFU's rate is not in the bound.
-K4F_OPS_PER_EVAL, K4F_OPS_PER_EMPTY, K4F_OPS_PER_COMPOSITE = 17, 1, 17
-# K4 backward's: per evaluation the same 17; per contribution 1 - alpha,
-# exp(log final_t - s_after) (2), T (1), w (1), fdot (9), g_alpha (4), gG
-# (2), the 11 gradients (34), the suffix and log sums (4: log1p counted
-# once) and the 11 sums over the tile's pixels (11) = 69; per pixel
-# log(final_t) and final_t g_ft (2)
+# slot-pixel evaluation (a pixel inside the slot's alpha-cut ellipse, which
+# needs the exp) dx, dy, the power quadratic (9), the power test, min, exp,
+# op * G, the 0.99 clamp and the alpha test (17); per slot a tile walks,
+# the cull that decides every pixel outside that ellipse at once
+# (blend_common.cuh:slot_blocks): the mask test and the cut log(eps / op)
+# - 1e-3 (4), det, -2 cut, the two half-widths (8), the centre's offset
+# (2) and each of the 4 warp blocks' box test (4 compares, 16) = 30; per
+# composite (kept, live) log1p, its add, exp, the T_EPS test, 1 - alpha,
+# the division, alpha * T and a multiply-add for each of the 5 channels
+# (17). exp and log1p count as one operation each: the SFU's rate is not
+# in the bound.
+K4F_OPS_PER_EVAL, K4_OPS_PER_CULL, K4F_OPS_PER_COMPOSITE = 17, 30, 17
+# K4 backward's: per evaluation and per cull the same; per contribution
+# 1 - alpha, exp(log final_t - s_after) (2), T (1), w (1), fdot (9),
+# g_alpha (4), gG (2), the 11 gradients (34), the suffix and log sums (4:
+# log1p counted once) and the 11 sums over the tile's pixels (11) = 69;
+# per pixel log(final_t) and final_t g_ft (2)
 K4B_OPS_PER_EVAL, K4B_OPS_PER_CONTRIB, K4B_OPS_PER_PIXEL = 17, 69, 2
 K4_BYTES_READ_PER_SLOT = 48  # rows 0-11 of the packed table
 K4_GRAD_BYTES_PER_SLOT = 44  # rows 0-10 of gdata, the ones with a gradient
@@ -1157,13 +1162,17 @@ K4_BYTES_PER_SLOT = 64  # a slot of the [T, 16, K] table
 def k4_work(data, out, grid_x, chunk_elems=1 << 24):
     """What this data needs of K4, counted with the plain version's
     arithmetic. Forward: each pixel walks the slots up to and including the
-    one at which it stops, or up to its tile's last pair, evaluating those
-    that hold a pair; each tile reads its mask row and its slots up to its
-    pixels' deepest walk. Backward: each pixel evaluates the slots with a
-    pair below its n_contrib; contributions are the kept live slots; each
-    tile reads its slots below its deepest n_contrib (and its last pair)."""
+    one at which it stops, or up to its tile's last pair; each tile reads
+    its mask row and its slots up to its pixels' deepest walk, and culls
+    each of them once. Backward: each pixel walks the slots below its
+    n_contrib; contributions are the kept live slots; each tile reads and
+    culls its slots below its deepest n_contrib (and its last pair). An
+    evaluation is a walked slot of a pair whose power at the pixel passes
+    the cheap test, power <= 0 and !(power < cut), cut = log(eps / op) -
+    1e-3 (blend_common.cuh:alpha_cut): only there is the exp needed."""
     import torch
 
+    from eogs2_tpu_torch.ops.blend import ALPHA_EPS
     from eogs2_tpu_torch.ops.blend_cuda import slot_fields, slots_in_use
 
     n_tiles, _, k = data.shape
@@ -1173,21 +1182,26 @@ def k4_work(data, out, grid_x, chunk_elems=1 << 24):
     walk_b = torch.minimum(n_contrib, n_slots[:, None])
     kmax = max(int(n_slots.max()), 1)
     tc = max(1, chunk_elems // (256 * kmax))
-    w = dict(fwd_evals=0, fwd_empty=0, contributions=0, bwd_evals=0)
+    w = dict(fwd_evals=0, contributions=0, bwd_evals=0)
     for t0 in range(0, n_tiles, tc):
         t1 = min(t0 + tc, n_tiles)
         k_len = int(n_slots[t0:t1].max())
         if k_len == 0:
             continue
-        _, _, _, _, keep = slot_fields(data, grid_x, t0, t1, k_len)
+        _, _, dx, dy, keep = slot_fields(data, grid_x, t0, t1, k_len)
+        d = data[t0:t1, :, :k_len, None]
+        power = (-0.5 * (d[:, 2] * dx * dx + d[:, 4] * dy * dy)
+                 - d[:, 3] * dx * dy)
+        del dx, dy
+        cut = torch.log(ALPHA_EPS / d[:, 5]) - 1e-3
+        tested = (d[:, 11] > 0.5) & (power <= 0.0) & ~(power < cut)
+        del power
         kk = torch.arange(k_len, device=data.device)[None, :, None]
-        has = (data[t0:t1, 11, :k_len] > 0.5)[..., None]  # [tc, k_len, 1]
         walked = kk < walk_f[t0:t1, None, :]
         live = kk < walk_b[t0:t1, None, :]
-        w["fwd_evals"] += int((walked & has).sum())
-        w["fwd_empty"] += int((walked & ~has).sum())
+        w["fwd_evals"] += int((walked & tested).sum())
         w["contributions"] += int((keep & live).sum())
-        w["bwd_evals"] += int((live & has).sum())
+        w["bwd_evals"] += int((live & tested).sum())
     w["fwd_slots_read"] = int(walk_f.amax(dim=1).sum())
     w["bwd_slots_read"] = int(walk_b.amax(dim=1).sum())
     w["mask_bytes"] = 4 * n_tiles * k
@@ -1210,11 +1224,12 @@ def k4_bounds(data, out, grid_x):
             ("fwd", K4_BYTES_READ_PER_SLOT * w["fwd_slots_read"] + maps
              + w["mask_bytes"],
              K4F_OPS_PER_EVAL * w["fwd_evals"]
-             + K4F_OPS_PER_EMPTY * w["fwd_empty"]
+             + K4_OPS_PER_CULL * w["fwd_slots_read"]
              + K4F_OPS_PER_COMPOSITE * w["contributions"]),
             ("bwd", (K4_BYTES_READ_PER_SLOT + K4_GRAD_BYTES_PER_SLOT)
              * w["bwd_slots_read"] + maps + w["mask_bytes"],
              K4B_OPS_PER_EVAL * w["bwd_evals"]
+             + K4_OPS_PER_CULL * w["bwd_slots_read"]
              + K4B_OPS_PER_CONTRIB * w["contributions"]
              + K4B_OPS_PER_PIXEL * n_tiles * 256)):
         t_bytes = bytes_ / H100_BYTES_PER_S * 1e3

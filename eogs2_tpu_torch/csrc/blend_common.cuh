@@ -184,24 +184,12 @@ __device__ __forceinline__ float warp_reduce_scatter(float (&v)[NV], int lane) {
 
 // The number of slots up to the tile's last pair (mask row set), so the
 // kernels skip the trailing empty slots: an empty slot changes nothing
-// (alpha 0, log1p(-0) = 0) and stays live. 16-byte loads where the row is
-// aligned (K a multiple of 4). Every thread of the NT-thread block calls it.
+// (alpha 0, log1p(-0) = 0) and stays live. Every thread of the NT-thread
+// block calls it.
 __device__ __forceinline__ int slots_in_use(const float* __restrict__ mask,
                                             int K, int* smem) {
   int last = 0;  // each thread's slots rise, so its last set one wins
-  int k = 0;
-  if ((reinterpret_cast<unsigned long long>(mask) & 15) == 0) {
-    const float4* m4 = reinterpret_cast<const float4*>(mask);
-    for (int i = threadIdx.x; i < K / 4; i += NT) {
-      const float4 m = m4[i];
-      if (m.w > 0.5f) last = 4 * i + 4;
-      else if (m.z > 0.5f) last = 4 * i + 3;
-      else if (m.y > 0.5f) last = 4 * i + 2;
-      else if (m.x > 0.5f) last = 4 * i + 1;
-    }
-    k = K / 4 * 4;
-  }
-  for (k += threadIdx.x; k < K; k += NT)
+  for (int k = threadIdx.x; k < K; k += NT)
     if (mask[k] > 0.5f) last = k + 1;
   return block_max<NT>(last, smem);
 }

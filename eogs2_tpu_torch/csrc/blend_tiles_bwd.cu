@@ -32,12 +32,13 @@
 // rows 11-15 zero, zero for every slot no pixel reached.
 //
 // Bound on this card: data and gout read once, gdata's gradient rows
-// written once up to each tile's walk; the work is the forward's
-// recomputation per slot-pixel evaluation below the walk and ~69 FP32
-// operations per contribution (chip_smoke.py:k4_bounds), so instruction
-// issue bounds it. The contract's zeros (rows 11-15 of every slot, rows
-// 0-10 past the walk) are most of the bytes written at K = 8192. K2's
-// design (fused_blend_bwd.cu) carried to this back-to-front walk:
+// written once up to each tile's walk; the work is the forward's cull per
+// slot and recomputation per slot-pixel evaluation below the walk and ~69
+// FP32 operations per contribution (chip_smoke.py:k4_bounds), so at a
+// render's tables the bytes bound it. The contract's zeros (rows 11-15 of
+// every slot, rows 0-10 past the walk) are most of the bytes written at K
+// = 8192. K2's design (fused_blend_bwd.cu) carried to this back-to-front
+// walk:
 //
 //   * One CTA of 128 threads per tile, PPT = 2 horizontally adjacent pixels
 //     per thread, each warp an 8 x 8 block of the tile. Each thread carries

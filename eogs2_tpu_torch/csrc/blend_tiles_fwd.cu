@@ -30,9 +30,10 @@
 //
 // Bound on this card: the packed table is read once (48 of a slot's 64 B,
 // and the mask row in full) up to each tile's stop, the output written once
-// (8 KB per tile). The work is ~17 FP32 operations per slot-pixel
-// evaluation and, per composite, log1p, exp, a division and the channel
-// sums (chip_smoke.py:k4_bounds), so instruction issue bounds it. K1's
+// (8 KB per tile). The work is ~30 FP32 operations per slot for the cull
+// below, ~17 per slot-pixel evaluation inside the slot's alpha-cut ellipse
+// and, per composite, log1p, exp, a division and the channel sums
+// (chip_smoke.py:k4_bounds); at a render's tables the bytes bound it. K1's
 // design (fused_blend_fwd.cu) with K4's rules:
 //
 //   * One CTA of 128 threads per tile, PPT = 2 horizontally adjacent pixels

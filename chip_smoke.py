@@ -78,11 +78,26 @@ the dense routes were added, so that their times stay comparable):
      forward against its plain version at each of the three renders' exact
      tables (captured from one more run), at the tolerances of phase 7,
      with its time and bound there;
- 10. the safe route (gather, the plain dense blend) in one training step at
+ 10. the rest of the single-modality recipe on the scene of phase 5:
+     learnwv on the fused route with tile_cull, calibrate_opacity_init
+     (12 renders of view 0, K1 only), then 30 iterations of Trainer.train
+     with clone/split densification every 5 from iteration 4, the opacity
+     reset every 10, early stopping, the Nadir DSM's MAE (evaluate_dsm_mae
+     against the scene's heightfield, the native registration) as the eval
+     hook every 10 and training_report at 30; per densify event the clone
+     and split counts and alive, the main render's pairs before and after,
+     each hook's wall time split into the Nadir render, the host flatten
+     and the registration, the MAEs, the report's scalars, K1's and K2's
+     launches, the step's ms before and after densification. It fails if
+     alive does not grow after an event that selected rows while slots were
+     free, if an opacity Adam moment is nonzero after a reset, if an MAE
+     or a step's metric is not finite, or if a render clips;
+ 11. the safe route (gather, the plain dense blend) in one training step at
      256x256 with about 20k Gaussians, on the card and on the CPU from the
      same state and draws: loss terms within rel 1e-4, every gradient
      within 2e-4 of its largest value; it launches no hand-written kernel;
- 11. the kernel table line, then the last line.
+ 12. the kernel table line (K1's and K2's launches include phase 10's),
+     then the last line.
 """
 
 from __future__ import annotations
@@ -732,7 +747,8 @@ class capture_blend_calls:
 def train_scene(device, width=1024, scale=142.0, n_views=7, hf_res=768,
                 n_buildings=24):
     """The synthetic scene of scripts/train_scale.py, built once in memory
-    and shared by the training phases: (scene, host seconds)."""
+    and shared by the training phases: (scene, host seconds, its
+    ground-truth heightfield)."""
     from eogs2_tpu_torch.data.synthetic import (make_scene_arrays,
                                                 scene_from_arrays)
 
@@ -745,7 +761,7 @@ def train_scene(device, width=1024, scale=142.0, n_views=7, hf_res=768,
     log(dict(phase="train_scene", init_gaussians=len(scene.init_xyz),
              train_views=len(scene.train_views), width=width, scale=scale,
              host_s=scene_s, **CARD))
-    return scene, scene_s
+    return scene, scene_s, arrays.heightfield
 
 
 def train_recipe(iterations):
@@ -1445,6 +1461,205 @@ def phase_train_fast(device, scene, width=1024, warmup=2, timed=10):
     return reps, fwd_at, bwd_at, launches[0], launches[1]
 
 
+class time_dsm_parts:
+    """Within the block, the wall seconds of evaluate_dsm_mae's parts: the
+    Nadir render (pipeline.render_view_full, which ends in the outputs'
+    copy to the host), the host flatten (pipeline.compute_dsm_from_view)
+    and the crop, registration and MAE (MaeComputer.compute_mae)."""
+
+    def __enter__(self):
+        from eogs2_tpu_torch import pipeline
+        from eogs2_tpu_torch.eval.mae import MaeComputer
+
+        self.seconds = {}
+        self.saved = [(pipeline, "render_view_full", "nadir_render_s"),
+                      (pipeline, "compute_dsm_from_view", "flatten_s"),
+                      (MaeComputer, "compute_mae", "registration_mae_s")]
+        for owner, attr, key in self.saved:
+            setattr(owner, attr, self._timed(getattr(owner, attr), key))
+        return self
+
+    def _timed(self, fn, key):
+        def timed(*a, **kw):
+            t = time.perf_counter()
+            out = fn(*a, **kw)
+            self.seconds[key] = (self.seconds.get(key, 0.0)
+                                 + time.perf_counter() - t)
+            return out
+        timed.orig = fn
+        return timed
+
+    def __exit__(self, *exc):
+        for owner, attr, _ in self.saved:
+            setattr(owner, attr, getattr(owner, attr).orig)
+
+
+def recipe_config(iterations):
+    """learnwv with the sun and random camera on from iteration 1, clone/
+    split densification every 5 iterations from 4, the opacity reset every
+    10, the DSM hook every 10, early stopping with patience for every
+    step, and training_report at the last step."""
+    from eogs2_tpu_torch.config import learnwv
+
+    cfg = learnwv(iterations=iterations)
+    o = cfg.optimization
+    o.iterstart_shadowmapping = 0
+    o.iterstart_L_new_resample = 0
+    o.only_prune = False
+    o.densification.densify_from_iter = 4
+    o.densification.densification_interval = 5
+    o.opacity_reset_interval = 10
+    o.early_stopping.use_early_stopping = True
+    o.early_stopping.patience = iterations
+    cfg.logging.tb_log_interval = 5
+    cfg.logging.testing_interval = 10
+    cfg.logging.big_testing_iterations = [iterations]
+    return cfg
+
+
+def phase_recipe(device, scene, heightfield, iterations=30):
+    """The rest of the single-modality recipe at full width: learnwv on
+    the fused route with tile_cull on the train-1M-1024 scene, the opacity
+    calibrated first (12 Nadir-less renders of view 0), then `iterations`
+    iterations through Trainer.train with clone/split densification, the
+    opacity reset, early stopping, the Nadir DSM's MAE as the eval hook and
+    training_report at the end. Returns the K1 and K2 launches of the run
+    (calibration included)."""
+    import tempfile
+
+    import torch
+
+    from eogs2_tpu_torch.eval.mae import MaeComputer
+    from eogs2_tpu_torch.ops.fused_raster import (fused_blend_bwd,
+                                                  fused_blend_fwd)
+    from eogs2_tpu_torch.pipeline import evaluate_dsm_mae
+    from eogs2_tpu_torch.rasterizer import RasterizeConfig
+    from eogs2_tpu_torch.train import Trainer
+
+    cfg = recipe_config(iterations)
+    o = cfg.optimization
+    rcfg = RasterizeConfig(binning_mode="fused", tile_cull=True)
+    tr = Trainer(cfg, scene, rcfg, device=device).setup()
+    capacity = int(tr.model.xyz.shape[0])
+    with tempfile.TemporaryDirectory() as gt_dir:
+        np.save(os.path.join(gt_dir, "gt_heightfield.npy"), heightfield)
+        mc = MaeComputer.from_synthetic(gt_dir, scale=scene.scene_scale)
+    tr.mae_computer = mc
+
+    fused_blend_fwd.launches = 0
+    fused_blend_bwd.launches = 0
+    t = time.perf_counter()
+    opacity = tr.calibrate_opacity_init()
+    calib_s = time.perf_counter() - t
+    calib = (fused_blend_fwd.launches, fused_blend_bwd.launches)
+    if calib != (12, 0):
+        raise AssertionError(f"calibration launched K1, K2 {calib}, want "
+                             f"12, 0")
+
+    hooks = []
+
+    def hook(trainer, model, iteration):
+        with time_dsm_parts() as parts:
+            t = time.perf_counter()
+            mae = evaluate_dsm_mae(model, trainer.scene, mc,
+                                   trainer.raster_cfg)[0]
+            wall = time.perf_counter() - t
+        hooks.append(dict(iteration=iteration, mae=mae, wall_s=wall,
+                          **parts.seconds))
+        if not np.isfinite(mae):
+            raise AssertionError(f"MAE at iteration {iteration}: {mae}")
+
+    steps, step_ms, resets = {}, {}, []
+    train_step = tr.train_step
+
+    def timed_step(iteration):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        m = train_step(iteration)
+        torch.cuda.synchronize()
+        step_ms[iteration] = (time.perf_counter() - t) * 1e3
+        steps[iteration] = m
+        if iteration % o.opacity_reset_interval == 0:  # just reset
+            st = tr.gauss_opt.state[tr.model.opacity]
+            nz = int((st["exp_avg"] != 0).sum() + (st["exp_avg_sq"] != 0).sum())
+            resets.append(dict(iteration=iteration, nonzero_moments=nz))
+            if nz:
+                raise AssertionError(f"{nz} opacity moments nonzero after "
+                                     f"the reset at {iteration}")
+        return m
+
+    report = {}
+    training_report = tr.training_report
+
+    def timed_report(iteration, **kw):
+        t = time.perf_counter()
+        report.update(training_report(iteration, **kw))
+        report["wall_s"] = time.perf_counter() - t
+        return report
+
+    tr.train_step, tr.training_report, tr.eval_hook = (timed_step,
+                                                       timed_report, hook)
+    fused_blend_fwd.launches = 0
+    fused_blend_bwd.launches = 0
+    t = time.perf_counter()
+    tr.train(progress=False)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t
+    k1, k2 = fused_blend_fwd.launches, fused_blend_bwd.launches
+
+    ran = sorted(steps)
+    if ran != list(range(1, iterations + 1)):
+        raise AssertionError(f"iterations run: {ran}")
+    if k2 != 3 * iterations or k1 < 3 * iterations + len(hooks):
+        raise AssertionError(f"K1 {k1}, K2 {k2} launches over "
+                             f"{iterations} iterations")
+    every = torch.stack([torch.stack([m[k].double() for k in m])
+                         for m in steps.values()])
+    if not bool(torch.isfinite(every).all()):
+        raise AssertionError("non-finite step metrics")
+    if any(int(m["clipped_pairs"]) for m in steps.values()):
+        raise AssertionError("a render clipped")
+    for ev in tr.densify_log:
+        if ev["selected"] and ev["alive_before"] < capacity and not (
+                ev["cloned"] + ev["split"] > 0 and ev["alive_densified"]
+                == ev["alive_before"] + ev["cloned"] + ev["split"]):
+            raise AssertionError(f"alive did not grow: {ev}")
+    if (len(hooks) != iterations // cfg.logging.testing_interval
+            or len(resets) != iterations // o.opacity_reset_interval
+            or not tr.densify_log or "report/MAE" not in report
+            or not all(np.isfinite(v) for v in report.values())):
+        raise AssertionError(f"hooks {hooks}, resets {resets}, densify "
+                             f"{tr.densify_log}, report {report}")
+    first = tr.densify_log[0]["iteration"]  # densified after its step
+    before = [step_ms[i] for i in range(2, first)]
+    after = [step_ms[i] for i in range(tr.densify_log[-1]["iteration"] + 1,
+                                       iterations + 1)]
+    log(dict(phase="recipe", recipe="learnwv; sun and random camera from "
+             "iteration 1; clone/split every 5 from 4; opacity reset every "
+             "10; DSM MAE hook every 10; early stopping; training_report "
+             f"at {iterations}", config="fused, tile_cull, eogs_features",
+             init_gaussians=len(scene.init_xyz), capacity=capacity,
+             width=int(scene.train_views[0].camera.width),
+             calibrated_opacity=opacity, calibration_s=calib_s,
+             calibration_k1_launches=calib[0], train_s=train_s,
+             k1_launches=k1, k2_launches=k2,
+             densify_events=tr.densify_log, opacity_resets=resets,
+             main_render_pairs={i: int(steps[i]["num_pairs"])
+                                for i in (1, first, first + 1,
+                                          iterations)},
+             step_ms_before_densify=before,
+             step_ms_median_before_densify=statistics.median(before),
+             step_ms_after_densify=after,
+             step_ms_median_after_densify=statistics.median(after),
+             densify_step_ms={e["iteration"]: step_ms[e["iteration"]]
+                              for e in tr.densify_log},
+             dsm_hooks=hooks, report=report,
+             early_stopping_iterations=[m["iteration"]
+                                        for m in tr.metrics_history],
+             **CARD))
+    return k1 + calib[0], k2
+
+
 def dense_serve_cfg(model, view, scene, width):
     """gather + use_pallas for serving, its capacities bucketed from the
     three renders' demand (view, sun, Nadir), so that nothing clips.
@@ -1675,7 +1890,7 @@ def main() -> int:
     phase_k1_small(device)
     k2_small_err = phase_k2_small(device)
     per_render, serve_launches = phase_serve(device)
-    scene, scene_s = train_scene(device)
+    scene, scene_s, heightfield = train_scene(device)
     k2_at, k1_at, k1_launches, k2_launches, captured, tr = phase_train(
         device, scene, scene_s)
     k2 = k2_at["main"]
@@ -1687,6 +1902,8 @@ def main() -> int:
     k4_small = phase_k4_small(device)
     k4_at, k4f_at, k4b_at, k4f_launches, k4b_launches = phase_train_fast(
         device, scene)
+    gc.collect()
+    recipe_k1, recipe_k2 = phase_recipe(device, scene, heightfield)
     del scene
     gc.collect()
     k4_serve_launches, k4_serve, k4_serve_at = phase_serve_dense(device)
@@ -1709,7 +1926,8 @@ def main() -> int:
 
     log({"kernels": [
         entry("fused_blend_fwd (K1)", "fused_blend_fwd.cu",
-              "fused_raster.py:532", serve_launches + k1_launches, view,
+              "fused_raster.py:532", serve_launches + k1_launches
+              + recipe_k1, view,
               max_abs_err=max(max(r["max_abs_err_ch0_4"],
                                   r["max_abs_err_final_t"])
                               for r in (*per_render.values(),
@@ -1719,7 +1937,7 @@ def main() -> int:
                                                  *k1_at.values())),
               **per_step(k1_at)),
         entry("fused_blend_bwd (K2)", "fused_blend_bwd.cu",
-              "fused_raster.py:614", k2_launches, k2,
+              "fused_raster.py:614", k2_launches + recipe_k2, k2,
               max_abs_err=max(r["max_abs_err"] for r in k2_at.values()),
               max_row_rel_err=max(k2_small_err, *(r["max_row_rel_err"]
                                                   for r in k2_at.values())),

@@ -276,9 +276,9 @@ __device__ __forceinline__ void finish_slots(Pair* buf, unsigned char* blocks,
   }
 }
 
-// K4's alpha, min(0.99, op G) with a NaN kept NaN, as torch.clamp_max keeps
-// it in the plain versions (fminf would give 0.99): a NaN opacity is then
-// never kept, since NaN >= 1/255 is false.
+// The kernels' alpha, min(0.99, op G) with a NaN kept NaN, as
+// torch.clamp_max keeps it in the plain versions (fminf would give 0.99): a
+// NaN opacity is then never kept, since NaN >= 1/255 is false.
 __device__ __forceinline__ float clamp_alpha(float opG) {
   return opG > ALPHA_MAX ? ALPHA_MAX : opG;
 }

@@ -200,8 +200,8 @@ fused_blend_bwd_kernel(const float* __restrict__ pay, long long stride,
             const float power = pair_power(r0, cdy2, dx, dy);
             const float G = expf(fminf(power, 0.0f));
             const float opG = r1.z * G;
-            const float alpha = fminf(ALPHA_MAX, opG);
-            if (alpha < ALPHA_EPS) continue;
+            const float alpha = clamp_alpha(opG);
+            if (!(alpha >= ALPHA_EPS)) continue;  // a NaN is not kept
             const float one_minus = 1.0f - alpha;
             const float test_T = T[i] * one_minus;
             if (test_T < T_EPS) continue;

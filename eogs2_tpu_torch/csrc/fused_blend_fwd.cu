@@ -153,8 +153,8 @@ fused_blend_fwd_kernel(const float* __restrict__ pay, long long stride,
           if (!(pass >> (u * PPT + i) & 1u) || done[i]) continue;
           const Pair* q = &batch[buf][j + u];
           const float alpha =
-              fminf(ALPHA_MAX, q->r1.z * expf(fminf(pw[u][i], 0.0f)));
-          if (alpha < ALPHA_EPS) continue;
+              clamp_alpha(q->r1.z * expf(fminf(pw[u][i], 0.0f)));
+          if (!(alpha >= ALPHA_EPS)) continue;  // a NaN is not kept
           const float test_T = T[i] * (1.0f - alpha);
           if (test_T < T_EPS) {
             done[i] = true;

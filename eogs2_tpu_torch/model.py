@@ -168,6 +168,20 @@ def init_from_points(
     )
 
 
+def inverse_sigmoid(x):
+    return torch.log(x / (1.0 - x))
+
+
+@torch.no_grad()
+def reset_opacity(model: GaussianModel) -> None:
+    """opacity <- min(opacity, 0.01) on the alive Gaussians, in place
+    (gaussian_model.py:347-352). The caller also zeroes the opacity Adam
+    moments (densify.reset_opacity_with_moments)."""
+    new_raw = inverse_sigmoid(torch.clamp_max(model.get_opacity(), 0.01))
+    model.opacity.copy_(torch.where(model.alive[:, None], new_raw[:, None],
+                                    model.opacity))
+
+
 @torch.no_grad()
 def add_densification_stats(model: GaussianModel, grad_ndc, radii) -> None:
     """Accumulate ||dL/dmean2d_ndc||_2 of the visible Gaussians

@@ -15,6 +15,9 @@ interface and its own hash. The wrappers launch the library cached under
 ``name``, looked up at every launch (``entry``), so
 ``scripts/fused_blend_ab.py`` can swap another build in under that name and
 time the two against each other.
+
+The host C++ of ``eogs2_tpu_torch/native`` is built the same way, by g++,
+through ``hashed_library`` and ``build_library``.
 """
 
 from __future__ import annotations
@@ -78,38 +81,54 @@ def nvcc_command(name: str, out: str, csrc: str = CSRC) -> list:
 def library_path(name: str, csrc: str = CSRC) -> str:
     """_build/lib<name>-<hash>.so, the hash over the flags and the source
     with its headers (paths relative to csrc)."""
-    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for path in source_files(name, csrc):
+    return hashed_library(name, source_files(name, csrc), NVCC_FLAGS, csrc)
+
+
+def hashed_library(stem: str, files, flags, root: str) -> str:
+    """_build/lib<stem>-<hash>.so, the hash over the flags and the files'
+    paths (relative to root) and contents."""
+    digest = hashlib.sha256(" ".join(flags).encode())
+    for path in files:
         with open(path, "rb") as f:
-            digest.update(path[len(csrc):].encode() + f.read())
-    return os.path.join(BUILD_DIR, f"lib{name}-{digest.hexdigest()[:16]}.so")
+            digest.update(path[len(root):].encode() + f.read())
+    return os.path.join(BUILD_DIR, f"lib{stem}-{digest.hexdigest()[:16]}.so")
 
 
-def _build(name: str, csrc: str = CSRC) -> str:
-    """Build csrc/<name>.cu unless its library exists; nvcc's output goes to
-    build_logs and beside the library (lib<name>-<hash>.log), whence a later
-    process that finds the library built reads it."""
-    so = library_path(name, csrc)
-    key = _key(name, csrc)
+def build_library(so: str, command, what: str) -> str:
+    """Build the library `so` unless it exists, by running command(out),
+    the compiler's argument list that writes `out`. Returns the compiler's
+    output, which is kept beside the library (lib<stem>-<hash>.log), whence
+    a later process that finds the library built reads it. Raises
+    RuntimeError with that output when the compiler fails: nothing falls
+    back."""
     log = so[:-3] + ".log"
     if os.path.exists(so):
-        if key not in build_logs and os.path.exists(log):
+        if os.path.exists(log):
             with open(log) as f:
-                build_logs[key] = f.read()
-        return so
+                return f.read()
+        return ""
     os.makedirs(BUILD_DIR, exist_ok=True)
     # one name per process and thread: two builds of equal sources (another
     # tree's copy) may run at once, and the last to finish wins
     tag = f"{os.getpid()}.{threading.get_ident()}.tmp"
-    proc = subprocess.run(nvcc_command(name, f"{so}.{tag}", csrc),
-                          capture_output=True, text=True)
-    build_logs[key] = proc.stdout + proc.stderr
+    proc = subprocess.run(command(f"{so}.{tag}"), capture_output=True,
+                          text=True)
+    text = proc.stdout + proc.stderr
     if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed on {name}.cu:\n{build_logs[key]}")
+        raise RuntimeError(f"{what} failed:\n{text}")
     with open(f"{log}.{tag}", "w") as f:
-        f.write(build_logs[key])
+        f.write(text)
     os.replace(f"{log}.{tag}", log)
     os.replace(f"{so}.{tag}", so)  # atomic: a loader sees all or nothing
+    return text
+
+
+def _build(name: str, csrc: str = CSRC) -> str:
+    """Build csrc/<name>.cu unless its library exists; nvcc's output goes to
+    build_logs (and beside the library)."""
+    so = library_path(name, csrc)
+    build_logs[_key(name, csrc)] = build_library(
+        so, lambda out: nvcc_command(name, out, csrc), f"nvcc on {name}.cu")
     return so
 
 

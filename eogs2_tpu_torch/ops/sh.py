@@ -1,13 +1,35 @@
-"""Spherical-harmonics DC band <-> RGB (reference utils/sh_utils.py).
+"""Spherical-harmonics colour evaluation (reference utils/sh_utils.py).
 
-The EOGS recipes run with sh_degree=0, so only the DC band is on the path;
-``eval_sh`` for higher degrees arrives when a path needs it. Both functions
-work on torch tensors and numpy arrays alike.
+Counterpart of ``eogs2_tpu/ops/sh.py``; parity target the reference's
+eval_sh/RGB2SH/SH2RGB and the degree<=3 SH->RGB path of the CUDA preprocess
+(``cuda_rasterizer/forward.cu:20-71``). The EOGS recipes run with
+sh_degree=0, so only the DC band is on the path; the full basis is here for
+feature parity. ``RGB2SH``, ``SH2RGB`` and ``eval_sh`` work on torch
+tensors and numpy arrays alike.
 """
 
 from __future__ import annotations
 
+import torch
+
 C0 = 0.28209479177387814
+C1 = 0.4886025119029199
+C2 = (
+    1.0925484305920792,
+    -1.0925484305920792,
+    0.31539156525252005,
+    -1.0925484305920792,
+    0.5462742152960396,
+)
+C3 = (
+    -0.5900435899266435,
+    2.890611442640554,
+    -0.4570457994644658,
+    0.3731763325901154,
+    -0.4570457994644658,
+    1.445305721320277,
+    -0.5900435899266435,
+)
 
 
 def RGB2SH(rgb):
@@ -16,3 +38,56 @@ def RGB2SH(rgb):
 
 def SH2RGB(sh):
     return sh * C0 + 0.5
+
+
+def eval_sh(deg: int, sh, dirs):
+    """Evaluate real SH basis up to ``deg`` (0..3).
+
+    Args:
+      deg: static int degree.
+      sh: [..., C, (deg+1)**2] coefficients.
+      dirs: [..., 3] unit directions.
+
+    Returns:
+      [..., C] colors (before the +0.5 shift / clamp used by the rasterizer).
+    """
+    if not 0 <= deg <= 3:
+        raise ValueError(f"SH degree {deg} is not in 0..3")
+    result = C0 * sh[..., 0]
+    if deg > 0:
+        x, y, z = dirs[..., 0:1], dirs[..., 1:2], dirs[..., 2:3]
+        result = result - C1 * y * sh[..., 1] + C1 * z * sh[..., 2] - C1 * x * sh[..., 3]
+        if deg > 1:
+            xx, yy, zz = x * x, y * y, z * z
+            xy, yz, xz = x * y, y * z, x * z
+            result = (
+                result
+                + C2[0] * xy * sh[..., 4]
+                + C2[1] * yz * sh[..., 5]
+                + C2[2] * (2.0 * zz - xx - yy) * sh[..., 6]
+                + C2[3] * xz * sh[..., 7]
+                + C2[4] * (xx - yy) * sh[..., 8]
+            )
+            if deg > 2:
+                result = (
+                    result
+                    + C3[0] * y * (3 * xx - yy) * sh[..., 9]
+                    + C3[1] * xy * z * sh[..., 10]
+                    + C3[2] * y * (4 * zz - xx - yy) * sh[..., 11]
+                    + C3[3] * z * (2 * zz - 3 * xx - 3 * yy) * sh[..., 12]
+                    + C3[4] * x * (4 * zz - xx - yy) * sh[..., 13]
+                    + C3[5] * z * (xx - yy) * sh[..., 14]
+                    + C3[6] * x * (xx - 3 * yy) * sh[..., 15]
+                )
+    return result
+
+
+def sh_to_clamped_rgb(deg: int, sh, means, campos):
+    """SH -> RGB exactly as the rasterizer's preprocess does it.
+
+    Mirrors ``computeColorFromSH`` (forward.cu:20-71): view dir from campos,
+    +0.5 shift, clamp to >= 0 (no gradient where clamped, as the
+    reference's saved `clamped` flags give)."""
+    d = means - campos
+    d = d / torch.linalg.vector_norm(d, dim=-1, keepdim=True)
+    return torch.clamp_min(eval_sh(deg, sh, d) + 0.5, 0.0)

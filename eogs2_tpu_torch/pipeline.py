@@ -1,9 +1,11 @@
-"""Inference pipeline: full per-view rendering and the Nadir DSM.
+"""Inference pipeline: full per-view rendering, the Nadir DSM and its MAE.
 
 Counterpart of ``eogs2_tpu/pipeline.py``; parity targets
-``render_all_views`` (renderer_cc_shadow.py:148-193) and the DSM hook of
-train_pan.py:738-786. Everything renders under ``torch.no_grad()`` on the
-model's device. ``evaluate_dsm_mae`` arrives with eval/mae.py.
+``render_all_views`` (renderer_cc_shadow.py:148-193) and the test-iteration
+DSM hook of train_pan.py:738-797 (render the Nadir test camera, build the
+DSM, register against GT, report MAE). Everything renders under
+``torch.no_grad()`` on the model's device; the DSM flatten, the
+registration and the MAE run on the host in float64, as in JAX.
 """
 
 from __future__ import annotations
@@ -15,6 +17,7 @@ import torch
 
 from eogs2_tpu_torch.cameras import AffineCamera
 from eogs2_tpu_torch.eval.dsm import compute_dsm_from_view
+from eogs2_tpu_torch.eval.mae import MaeComputer
 from eogs2_tpu_torch.model import GaussianModel
 from eogs2_tpu_torch.ops.projection import TILE
 from eogs2_tpu_torch.ops.resample import grid_sample
@@ -149,3 +152,21 @@ def nadir_dsm(
         resolution=resolution,
     )
     return profile, dsm, out
+
+
+def evaluate_dsm_mae(
+    model: GaussianModel,
+    scene: SceneData,
+    mae_computer: MaeComputer,
+    raster_cfg: RasterizeConfig,
+    resolution: Optional[float] = None,
+    scene_name: str = "",
+):
+    """The Nadir DSM (nadir_dsm: render on the model's device, flatten on
+    the host) registered against the ground truth. Returns (mae, dsm
+    [H',W',1], diff, registered dsm)."""
+    profile, dsm, _ = nadir_dsm(model, scene, raster_cfg, resolution,
+                                scene_name)
+    mae, diff, rdsm = mae_computer.compute_mae(dsm[:, :, 0],
+                                               profile["transform"])
+    return mae, dsm, diff, rdsm

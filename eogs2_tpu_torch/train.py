@@ -35,11 +35,17 @@ grow is a config replace. Not ported: ``probe_capacities`` itself (ROADMAP
 Queue 3), ``next_buckets`` and ``prewarm_bucket_ladder`` (compile-cache
 warmers), ``early_exit_auto``, ``steps_per_dispatch`` and the step's
 ``.chunk`` (lax.scan) path.
-Still to port (ROADMAP Queue 1): densification by clone/split and the
-opacity reset with its Adam-moment surgery, early stopping (item 7);
-evaluation hooks and training_report (item 8); flow matching, colour reset,
-PAN modalities and pansharpening (item 9); checkpoints and model saves
-(item 12); the multi-device backends (item 13). The Trainer raises
+
+The Trainer runs the rest of the single-modality recipe as JAX's does:
+densification by clone/split with the size prune, the opacity reset with
+its Adam-moment surgery (``densify.py``; the split's draws come from the
+Trainer's generator), early stopping, the ``log_hook``, the ``eval_hook``
+every ``testing_interval`` (e.g. the Nadir DSM's MAE,
+``pipeline.evaluate_dsm_mae``), ``training_report`` at
+``big_testing_iterations``, and ``calibrate_opacity_init``.
+Still to port (ROADMAP Queue 1): flow matching, colour reset, PAN
+modalities and pansharpening (item 9); checkpoints and model saves (item
+12); the multi-device backends (item 13). The Trainer raises
 NotImplementedError when a config asks for one of them.
 """
 
@@ -55,13 +61,18 @@ import torch
 from eogs2_tpu_torch import losses as L
 from eogs2_tpu_torch.cameras import AffineCamera
 from eogs2_tpu_torch.config import TrainConfig
-from eogs2_tpu_torch.densify import prune_transparent
+from eogs2_tpu_torch.densify import (apply_prune, densify_clone,
+                                     densify_split, prune_mask,
+                                     prune_transparent,
+                                     reset_densification_stats,
+                                     reset_opacity_with_moments)
 from eogs2_tpu_torch.device import resolve_device
 from eogs2_tpu_torch.model import (GaussianModel, add_densification_stats,
                                    init_from_points)
 from eogs2_tpu_torch.ops.projection import TILE
 from eogs2_tpu_torch.ops.resample import grid_sample
 from eogs2_tpu_torch.ops.sh import SH2RGB
+from eogs2_tpu_torch.pipeline import evaluate_dsm_mae, render_view_full
 from eogs2_tpu_torch.rasterizer import RasterizeConfig, rasterize
 from eogs2_tpu_torch.scene import SceneData
 from eogs2_tpu_torch.shading import (CameraShadingParams, init_shading_params,
@@ -456,19 +467,31 @@ _UNPORTED = "is not ported yet (ROADMAP Queue 1 item {})"
 @dataclasses.dataclass
 class Trainer:
     """Host-side orchestration for one modality on one device: camera
-    sampling, phase scheduling, the step, transparent-Gaussian pruning and
-    metrics averaged every ``tb_log_interval`` iterations and, on the dense
-    modes, the capacity grow every 50 (the only host syncs besides the
-    renders' demand-sized emission).
+    sampling, phase scheduling, the step, densify/prune/reset cadence,
+    metrics averaged every ``tb_log_interval`` iterations, early stopping,
+    the hooks and, on the dense modes, the capacity grow every 50.
 
     ``Trainer(cfg, scene, raster_cfg).setup().train(n)``; ``device=None``
     means CUDA (raises without it), ``device="cpu"`` runs the plain
-    versions of the kernels."""
+    versions of the kernels.
+
+    Hooks: ``log_hook(trainer, metrics, iteration)`` at every logged
+    interval, in place of the progress print; ``eval_hook(trainer, model,
+    iteration)`` every ``testing_interval`` iterations (JAX passes its
+    TrainState as the second argument; the port has none, so it passes the
+    GaussianModel, ``trainer.model``). ``report_logger`` (anything with
+    ``log_scalars(dict, it)`` and ``log_image(tag, img, it)``) receives
+    ``training_report``'s output; with ``mae_computer`` (an
+    ``eval.mae.MaeComputer``) set, the report holds the Nadir DSM's MAE."""
 
     cfg: TrainConfig
     scene: SceneData
     raster_cfg: RasterizeConfig = RasterizeConfig()
     device: Optional[object] = None
+    eval_hook: Optional[Callable] = None
+    log_hook: Optional[Callable] = None
+    report_logger: Optional[object] = None
+    mae_computer: Optional[object] = None
 
     def setup(self):
         cfg = self.cfg
@@ -508,6 +531,8 @@ class Trainer:
         self.rng = np.random.RandomState(cfg.seed)
         self.generator = torch.Generator(device=dev).manual_seed(cfg.seed)
         self.metrics_history = []
+        # one entry per densify event: counts and alive (host ints)
+        self.densify_log = []
         return self
 
     def set_raster_cfg(self, raster_cfg: RasterizeConfig):
@@ -545,15 +570,6 @@ class Trainer:
         recipe that is not ported yet."""
         cfg, o = self.cfg, self.cfg.optimization
         todo = []
-        if not o.only_prune and o.densify_until_iter > 1:
-            todo.append(("densification by clone/split", 7))
-        r = o.opacity_reset_interval
-        if r >= 0 and (r == 0 or (r <= iters and r < o.iterend_opacity_reset_interval)):
-            todo.append(("the opacity reset with its Adam-moment surgery", 7))
-        if o.early_stopping.use_early_stopping:
-            todo.append(("early stopping", 7))
-        if cfg.logging.big_testing_iterations:
-            todo.append(("training_report", 8))
         if o.itr_apply_flowmatching_to_affine <= iters:
             todo.append(("baking flow into the affines", 9))
         if o.color_reset_iterations <= iters:
@@ -568,16 +584,59 @@ class Trainer:
             raise NotImplementedError(f"{what} " + _UNPORTED.format(item))
 
     def _maintenance(self, iteration: int):
-        """The only_prune path of train_pan.py:672-677."""
+        """Pruning / densification / opacity reset (train_pan.py:672-736),
+        in JAX's order (eogs2_tpu/train.py:1184-1232)."""
         o = self.cfg.optimization
+        model = self.model
         if iteration < o.densify_until_iter:
-            prune_transparent(self.model, o.min_opacity)
+            d = o.densification
+            if (not o.only_prune and iteration > d.densify_from_iter
+                    and iteration % d.densification_interval == 0):
+                self._densify(iteration)
+            prune_transparent(model, o.min_opacity)
+        if (o.opacity_reset_interval >= 0
+                and iteration % o.opacity_reset_interval == 0
+                and iteration < o.iterend_opacity_reset_interval):
+            reset_opacity_with_moments(model, self.gauss_opt)
+
+    def _densify(self, iteration: int):
+        """One densify event: clone, then split (on the state after the
+        clone), then the prune by opacity and size (the size test only past
+        the first opacity reset), then fresh densification statistics."""
+        o, model = self.cfg.optimization, self.model
+        d, extent = o.densification, self.scene.cameras_extent
+        with torch.no_grad():
+            grads_avg = torch.nan_to_num(
+                model.xyz_gradient_accum / model.denom.clamp_min(1e-12))
+            alive0 = model.alive.clone()
+            n_clone = densify_clone(model, self.gauss_opt, grads_avg,
+                                    d.densify_grad_threshold,
+                                    o.percent_dense, extent)
+            draws = torch.randn((2,) + tuple(model.xyz.shape),
+                                generator=self.generator, device=self.device)
+            n_split = densify_split(model, self.gauss_opt, grads_avg,
+                                    draws[0], draws[1],
+                                    d.densify_grad_threshold,
+                                    o.percent_dense, extent)
+            grown = model.alive.sum()
+            size_thr = 20 if iteration > o.opacity_reset_interval else None
+            apply_prune(model, prune_mask(model, 0.005, size_thr, extent,
+                                          extent))
+            reset_densification_stats(model)
+            counts = torch.stack([
+                ((grads_avg >= d.densify_grad_threshold) & alive0).sum(),
+                alive0.sum(), n_clone, n_split, grown,
+                model.alive.sum()]).tolist()  # one host sync
+        self.densify_log.append(dict(zip(
+            ("iteration", "selected", "alive_before", "cloned", "split",
+             "alive_densified", "alive_pruned"), [iteration] + counts)))
 
     def train_step(self, iteration: int) -> Dict[str, torch.Tensor]:
         """One iteration: pick a view (a fresh permutation of the views each
         epoch, from np.random.RandomState(seed) as JAX does), run the step of
-        this iteration's phase with its gates and draws, prune. Returns the
-        step's metrics as device tensors (nothing synced)."""
+        this iteration's phase with its gates and draws, then the
+        maintenance (prune, densify, opacity reset). Returns the step's
+        metrics as device tensors (nothing synced by the step)."""
         if not self._view_stack:
             self._view_stack = list(self.rng.permutation(
                 len(self.modal_views[0][1])))
@@ -596,30 +655,184 @@ class Trainer:
 
     def train(self, max_iterations: Optional[int] = None,
               progress: bool = True) -> GaussianModel:
-        o = self.cfg.optimization
+        """Run iterations 1..n (cfg.optimization.iterations by default), in
+        JAX's order within an iteration: the step and maintenance, the
+        capacity grow (every 50), the logged means with the log hook and
+        early stopping (every tb_log_interval; a stop breaks before this
+        iteration's eval hook), the eval hook, training_report."""
+        o, log = self.cfg.optimization, self.cfg.logging
         iters = max_iterations or o.iterations
         self._check_supported(iters)
-        log_every = self.cfg.logging.tb_log_interval
+        # early stopping (callback_utils.py:1-44): patience counts logged
+        # intervals, a zero metric is skipped
+        es = o.early_stopping
+        best = np.inf if es.operator == "min" else -np.inf
+        patience_left = es.patience
         interval: list = []
         t0 = time.time()
         for iteration in range(1, iters + 1):
             interval.append(self.train_step(iteration))
             if iteration % 50 == 0:
                 self._grow_capacities(interval[-1])
-            if iteration % log_every == 0:
+            if iteration % log.tb_log_interval == 0:
                 m = mean_metrics(interval)
                 m["iteration"] = iteration
                 m["alive"] = int(self.model.alive.sum())
-                m["it_per_s"] = log_every / max(time.time() - t0, 1e-9)
+                m["it_per_s"] = log.tb_log_interval / max(time.time() - t0,
+                                                          1e-9)
                 t0 = time.time()
                 interval = []
                 self.metrics_history.append(m)
-                if progress and iteration % (10 * log_every) == 0:
+                if self.log_hook:
+                    self.log_hook(self, m, iteration)
+                elif progress and iteration % (10 * log.tb_log_interval) == 0:
                     print(f"[{iteration:6d}] loss={m['loss']:.4f} "
                           f"photo={m['photometric']:.4f} psnr={m['psnr']:.2f} "
                           f"alive={m['alive']} {m['it_per_s']:.1f} it/s",
                           flush=True)
+                if es.use_early_stopping:
+                    val = m.get(es.metric_name, 0.0)
+                    if val != 0.0:
+                        better = (val < best if es.operator == "min"
+                                  else val > best)
+                        if better:
+                            best = val
+                            patience_left = es.patience
+                        else:
+                            patience_left -= 1
+                        if patience_left <= 0:
+                            print(f"early stopping at iteration {iteration}")
+                            break
+            if self.eval_hook and iteration % log.testing_interval == 0:
+                self.eval_hook(self, self.model, iteration)
+            if iteration in (log.big_testing_iterations or ()):
+                self.training_report(iteration)
         return self.model
+
+    def calibrate_opacity_init(self, target_acc: float = 0.999,
+                               iters: int = 12) -> float:
+        """Set the alive Gaussians' opacity so that the mean accumulated
+        opacity of train view 0's render (no sun) is about ``target_acc``
+        (the CLI's ``--opacity-init auto``): a log-space bisection over
+        [1e-4, 0.9], ``iters`` renders. Returns the value."""
+        model = self.model
+        cam = self.scene.train_views[0].camera
+        saved = model.opacity.detach().clone()
+
+        def mean_acc(op_value):
+            with torch.no_grad():
+                model.opacity.fill_(float(np.log(op_value / (1.0 - op_value))))
+            out = render_view_full(model, cam, self.raster_cfg, with_sun=False)
+            return float(np.mean(out["acc_opacity"]))
+
+        lo, hi = 1e-4, 0.9
+        for _ in range(iters):
+            mid = float(np.sqrt(lo * hi))
+            if mean_acc(mid) < target_acc:
+                lo = mid
+            else:
+                hi = mid
+        value = float(np.sqrt(lo * hi))
+        raw = float(np.log(value / (1.0 - value)))
+        with torch.no_grad():
+            model.opacity.copy_(torch.where(model.alive[:, None],
+                                            saved.new_tensor(raw), saved))
+        print(f"calibrated opacity_init_value = {value:.4f} "
+              f"(mean acc opacity target {target_acc})")
+        return value
+
+    def test_shading_params(self) -> CameraShadingParams:
+        """Shading parameters for test cameras: the train cameras' colour
+        correction converted by ``train_to_test_cc_converter`` ('ref': view
+        0's, else their average; convert_color_correction.py), the other
+        leaves view 0's with a zero pose residual. One entry, for any test
+        view."""
+        sh = self.shading
+        with torch.no_grad():
+            if self.cfg.model.train_to_test_cc_converter == "ref":
+                w, b = sh.cc_weight[:1], sh.cc_bias[:1]
+            else:  # the mean as jnp.mean rounds it: the sum times 1/V
+                inv = 1.0 / sh.cc_weight.shape[0]
+                w = sh.cc_weight.sum(0, keepdim=True) * inv
+                b = sh.cc_bias.sum(0, keepdim=True) * inv
+            fields = {f.name: getattr(sh, f.name)
+                      for f in dataclasses.fields(sh)}
+            fields = {k: None if v is None else v[:1].detach().clone()
+                      for k, v in fields.items()}
+            fields.update(cc_weight=w.detach().clone(),
+                          cc_bias=b.detach().clone(),
+                          last_row=torch.zeros_like(fields["last_row"]))
+        return CameraShadingParams(**fields)
+
+    def training_report(self, iteration: int, logger=None,
+                        max_images: int = 5) -> Dict[str, float]:
+        """Full train/test evaluation report (train_pan.py:838-1025): renders
+        every train and test camera through the full shading pipeline (test
+        cameras with test_shading_params), logs per-modality L1/PSNR scalars
+        and up to ``max_images`` rendered images per split and, with
+        ``mae_computer`` set, the Nadir DSM's MAE and its registered DSM and
+        |diff| images. ``logger`` (else ``report_logger``) needs
+        ``log_scalars`` and ``log_image``. Returns the scalars."""
+        logger = logger if logger is not None else self.report_logger
+        test_sh = self.test_shading_params()
+        report = {}
+        for split in ("train", "test"):
+            sums = {}
+            n_logged = 0
+            for mname, tviews in self.modal_views:
+                views = (tviews if split == "train"
+                         else [v for v in self.scene.test_views
+                               if v.image_type == mname and not v.is_virtual])
+                for vi, view in enumerate(views):
+                    if view.image is None:
+                        continue
+                    out = render_view_full(
+                        self.model, view.camera, self.raster_cfg,
+                        shading=self.shading if split == "train" else test_sh,
+                        view_idx=vi if split == "train" else 0,
+                        with_sun=view.camera.has_sun)
+                    gt = np.clip(view.image, 0.0, 1.0)
+                    img = out["final"]
+                    c = min(img.shape[0], gt.shape[0])
+                    h = min(img.shape[1], gt.shape[1])
+                    w = min(img.shape[2], gt.shape[2])
+                    img, gt = img[:c, :h, :w], gt[:c, :h, :w]
+                    mse = float(np.mean((img - gt) ** 2))
+                    l1, ps, n = sums.get(mname, (0.0, 0.0, 0))
+                    sums[mname] = (l1 + float(np.mean(np.abs(img - gt))),
+                                   ps + float(-10.0 * np.log10(mse + 1e-12)),
+                                   n + 1)
+                    if logger is not None and n_logged < max_images:
+                        tag = f"{split}_v_{view.name[:5]}_{mname}"
+                        logger.log_image(f"{tag}/render", img, iteration)
+                        logger.log_image(f"{tag}/ground_truth", gt,
+                                         iteration)
+                        n_logged += 1
+            for mname, (l1, ps, n) in sums.items():
+                if n:
+                    report[f"{split}/l1_loss_{mname}"] = l1 / n
+                    report[f"{split}/psnr_{mname}"] = ps / n
+        # the registered DSM and its |diff| against the ground truth
+        # (train_pan.py:966-1023)
+        if self.mae_computer is not None:
+            mae, _, diff, rdsm = evaluate_dsm_mae(
+                self.model, self.scene, self.mae_computer, self.raster_cfg)
+            report["report/MAE"] = float(mae)
+            if logger is not None:
+                for tag, arr in (("RDSM", rdsm), ("abs_diff", np.abs(diff))):
+                    a = np.asarray(arr, np.float32)
+                    finite = np.isfinite(a)
+                    lo = np.nanmin(a[finite]) if finite.any() else 0.0
+                    hi = np.nanmax(a[finite]) if finite.any() else 1.0
+                    norm = np.where(finite, (a - lo) / max(hi - lo, 1e-9),
+                                    0.0)
+                    logger.log_image(f"report/{tag}", norm[None], iteration)
+        if logger is not None:
+            logger.log_scalars(report, iteration)
+        if report:
+            pretty = {k: round(v, 4) for k, v in report.items()}
+            print(f"[ITER {iteration}] report: {pretty}", flush=True)
+        return report
 
 
 def mean_metrics(steps) -> Dict[str, float]:

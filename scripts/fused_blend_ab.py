@@ -355,7 +355,7 @@ def main() -> int:
     libs = build(trees)
     order = (["parent"] if args.parent else []) + ["this"] + [
         v for v in trees if v != "parent"]
-    scene, _ = cs.train_scene(device)
+    scene, _, _ = cs.train_scene(device)
     model, view, scene_s, shading = cs.serve_scene(1_000_000, 1024, seed=0,
                                                    device=device)
 

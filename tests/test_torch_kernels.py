@@ -20,6 +20,9 @@ import numpy as np
 import pytest
 import torch
 
+from eogs2_tpu_torch import densify
+from eogs2_tpu_torch.config import baseogs
+from eogs2_tpu_torch.model import GaussianModel
 from eogs2_tpu_torch.ops.blend_cuda import (blend_backward,
                                             blend_backward_plain,
                                             blend_forward, blend_forward_plain,
@@ -35,6 +38,7 @@ from eogs2_tpu_torch.ops.projection import (compute_cov2d_direct,
                                             preprocess_gaussians)
 from eogs2_tpu_torch.rasterizer import (RasterizeConfig, rasterize,
                                         reference_rasterize)
+from eogs2_tpu_torch.train import gaussian_optimizer
 
 
 @pytest.fixture
@@ -174,6 +178,56 @@ def test_k1_nan_power_is_not_kept(cuda):
     keep[5] = False  # its own mean and conic rows are NaN in both
     assert torch.isfinite(g[:, keep]).all()
     assert _row_err(g[:, keep], g_plain[:, keep]) < 2e-4
+
+
+def _bad_opacities(pay):
+    """test_k4_matches_plain's zero_neg_nan_opacity case on a column
+    payload: opacity 0 at every seventh pair, -0.5 and NaN at others."""
+    pay[5, ::7] = 0.0
+    pay[5, 3::7] = -0.5
+    pay[5, 5::7] = float("nan")
+    return torch.isnan(pay[5])
+
+
+@pytest.mark.cuda
+def test_k1_nan_opacity_is_not_kept(cuda):
+    """A pair whose opacity is 0, negative or NaN is not kept, as the plain
+    version decides (min(0.99, NaN) stays NaN, and NaN >= 1/255 is
+    false)."""
+    pay, tstart, cnt = _long_tiles(cuda, seed=4)
+    _bad_opacities(pay)
+    k = fused_blend_fwd(pay, tstart, cnt, 4)
+    p = fused_blend_fwd_plain(pay, tstart, cnt, 4)
+    torch.cuda.synchronize()
+    assert torch.isfinite(k).all()
+    torch.testing.assert_close(k[..., :5], p[..., :5], atol=2e-4, rtol=0)
+    torch.testing.assert_close(k[..., 5], p[..., 5], atol=2e-5, rtol=0)
+    assert torch.equal(k[..., 6], p[..., 6])
+
+
+@pytest.mark.cuda
+def test_k2_nan_opacity_rows_are_zero(cuda):
+    """K2 gives a pair whose opacity is NaN zero gradient rows, where the
+    plain version's mean and conic rows are NaN (0 * NaN); it writes NaN
+    nowhere, and every other row agrees with the plain version."""
+    pay, tstart, cnt = _long_tiles(cuda, seed=5)
+    nan_op = _bad_opacities(pay)
+    out8 = fused_blend_fwd_plain(pay, tstart, cnt, 4)
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    g_out8 = torch.randn(out8.shape, generator=gen, device=cuda)
+    g = fused_blend_bwd(pay, tstart, cnt, out8, g_out8, 4)
+    g_plain = fused_blend_bwd_plain(pay, tstart, cnt, out8, g_out8, 4)
+    torch.cuda.synchronize()
+    assert torch.isfinite(g).all()
+    assert (g[:, nan_op] == 0).all()
+    finite = torch.isfinite(g_plain)
+    assert not finite[:, nan_op].all()  # the plain version's NaN rows
+    assert (g[~finite] == 0).all()
+    for r in range(NF):
+        ok = finite[r]
+        err = (g[r][ok] - g_plain[r][ok]).abs().max()
+        assert float(err / g_plain[r][ok].abs().max().clamp_min(1e-30)) < 2e-4
+    assert torch.equal(g, fused_blend_bwd(pay, tstart, cnt, out8, g_out8, 4))
 
 
 @pytest.mark.cuda
@@ -444,3 +498,73 @@ def test_dense_rasterize_on_card_matches_cpu(cuda, mode):
     for g, w in zip(got, want):
         assert float((g - w).abs().max()
                      / w.abs().max().clamp_min(1e-30)) < 2e-4
+
+
+def _densify_state(device, cap=4096, n=4000, seed=0):
+    """A seeded model with free slots, densification statistics and Adam
+    moments, on `device`."""
+    rng = np.random.RandomState(seed)
+    params = dict(xyz=rng.normal(size=(cap, 3)),
+                  features_dc=rng.normal(size=(cap, 1, 3)),
+                  features_rest=np.zeros((cap, 0, 3)),
+                  scaling=np.log(rng.uniform(0.003, 0.015, (cap, 3))),
+                  rotation=rng.normal(size=(cap, 4)),
+                  opacity=rng.uniform(-7, 3, (cap, 1)))
+    alive = np.zeros(cap, bool)
+    alive[:n] = rng.uniform(size=n) < 0.9
+    aux = dict(alive=alive, max_radii2d=rng.uniform(0, 30, cap),
+               xyz_gradient_accum=rng.uniform(0, 2e-3, cap),
+               denom=rng.randint(0, 6, cap).astype(np.float32))
+    model = GaussianModel.from_numpy(params, aux, device=device)
+    opt = gaussian_optimizer(model, baseogs(), 1.0)
+    for p in (model.xyz, model.features_dc, model.features_rest,
+              model.scaling, model.rotation, model.opacity):
+        opt.state[p] = dict(
+            step=torch.tensor(3.0),
+            exp_avg=torch.tensor(rng.normal(size=p.shape), dtype=torch.float32,
+                                 device=device),
+            exp_avg_sq=torch.tensor(rng.uniform(0.1, 1, p.shape),
+                                    dtype=torch.float32, device=device))
+    draws = torch.tensor(rng.normal(size=(2, cap, 3)), dtype=torch.float32,
+                         device=device)
+    return model, opt, draws
+
+
+@pytest.mark.cuda
+def test_densify_and_reset_on_card_match_cpu(cuda):
+    """One densify event (clone, then split with the same draws, the size
+    prune, fresh statistics) and an opacity reset with its moments, on card
+    tensors and on CPU tensors from the same inputs: alive, the buffers,
+    the moments and every copied row exactly; the rows the card computes
+    (the split's children: exp, log, a normalised 3x3 product; the reset
+    opacity: sigmoid and log) within 1e-6, the float32 rounding of those
+    functions on the card and on the CPU."""
+    res = []
+    for dev in (cuda, torch.device("cpu")):
+        model, opt, draws = _densify_state(dev)
+        g = torch.nan_to_num(model.xyz_gradient_accum
+                             / model.denom.clamp_min(1e-12))
+        counts = [int(densify.densify_clone(model, opt, g, 4e-4, 0.01, 1.0))]
+        counts.append(int(densify.densify_split(model, opt, g, draws[0],
+                                                draws[1], 4e-4, 0.01, 1.0)))
+        densify.apply_prune(model, densify.prune_mask(model, 0.005, 20, 1.0,
+                                                      1.0))
+        densify.reset_densification_stats(model)
+        densify.reset_opacity_with_moments(model, opt)
+        res.append((counts, model, opt))
+    (c_card, m_card, o_card), (c_cpu, m_cpu, o_cpu) = res
+    assert c_card == c_cpu and min(c_cpu) > 0
+    for f in ("alive", "max_radii2d", "xyz_gradient_accum", "denom"):
+        assert torch.equal(getattr(m_card, f).cpu(), getattr(m_cpu, f)), f
+    for f in ("xyz", "features_dc", "features_rest", "scaling", "rotation",
+              "opacity"):
+        got, want = getattr(m_card, f).detach().cpu(), getattr(m_cpu, f)
+        if f in ("xyz", "scaling", "opacity"):
+            torch.testing.assert_close(got, want.detach(), rtol=1e-6,
+                                       atol=1e-6)
+        else:
+            assert torch.equal(got, want.detach()), f
+        for k in ("exp_avg", "exp_avg_sq"):
+            assert torch.equal(o_card.state[getattr(m_card, f)][k].cpu(),
+                               o_cpu.state[getattr(m_cpu, f)][k]), (f, k)
+    assert (o_cpu.state[m_cpu.opacity]["exp_avg"] == 0).all()

@@ -579,8 +579,8 @@ def test_trainer_trains_and_prunes(scenes):
 
 
 @pytest.mark.parametrize("opt,match", [
-    ({"only_prune": False}, "clone/split"),
-    ({"opacity_reset_interval": 3}, "opacity reset"),
+    ({"itr_apply_flowmatching_to_affine": 3}, "baking flow"),
+    ({"normalize_colors_before_saving": True}, "normalize_colors"),
     ({"color_reset_iterations": 2}, "colour reset"),
 ])
 def test_trainer_raises_for_unported_parts(scenes, opt, match):

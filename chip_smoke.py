@@ -92,12 +92,28 @@ the dense routes were added, so that their times stay comparable):
      alive does not grow after an event that selected rows while slots were
      free, if an opacity Adam moment is nonzero after a reset, if an MAE
      or a step's metric is not finite, or if a render clips;
- 11. the safe route (gather, the plain dense blend) in one training step at
+ 11. the CLI end to end through cli.main, on the scene of phase 5 (the
+     phase's path, run after phase 10 and before phase 9): make-synthetic
+     writes the scene (load_scene of it gives phase 5's init cloud and
+     images, bit for bit); train (baseogs, --raster-mode fused, 100
+     iterations, a model save and a checkpoint at 50 and 100, the MAE hook
+     and training_report at 100); chkpnt100 restored into a fresh Trainer
+     (every parameter, bookkeeping row, shading leaf and Adam moment
+     bit-equal, Adam step 100); train --start-checkpoint chkpnt50 for 10
+     iterations; render (the gather route with the plain blend, K 16384
+     above every render's densest tile and max_tiles_per_gaussian 1024
+     above its widest Gaussian, both checked), its Nadir.tif equal to
+     nadir_dsm of load_model's model and the PLY's rows equal to the
+     checkpoint's alive rows; eval-dsm of that DSM within 0.05 m of the
+     hook's MAE; the video's 8 frames. Stage seconds, save_model's seconds,
+     the checkpoint's bytes, the render's seconds per view. Neither
+     imageio nor Pillow may be imported;
+ 12. the safe route (gather, the plain dense blend) in one training step at
      256x256 with about 20k Gaussians, on the card and on the CPU from the
      same state and draws: loss terms within rel 1e-4, every gradient
      within 2e-4 of its largest value; it launches no hand-written kernel;
- 12. the kernel table line (K1's and K2's launches include phase 10's),
-     then the last line.
+ 13. the kernel table line (K1's and K2's launches include phase 10's and
+     phase 11's), then the last line.
 """
 
 from __future__ import annotations
@@ -1296,30 +1312,40 @@ class capture_k4_calls:
 
 
 class record_renders:
-    """Within the block, every rasterize call of the training step records
-    its demand statistics (max_tile_count, max_tiles_per_gaussian_seen) as
-    device tensors, read after the block."""
+    """Within the block, every rasterize call made through the named
+    modules (default: the training step's) records its demand statistics
+    (max_tile_count, max_tiles_per_gaussian_seen) as device tensors, read
+    after the block."""
+
+    def __init__(self, *module_names):
+        self.names = module_names or ("train",)
 
     def __enter__(self):
+        import importlib
+
         import torch
 
-        from eogs2_tpu_torch import train
-
-        self.mod, orig = train, train.rasterize
+        self.mods = [importlib.import_module(f"eogs2_tpu_torch.{n}")
+                     for n in self.names]
+        self.origs = [m.rasterize for m in self.mods]
         self.stats = []
 
-        def recording(*args, **kw):
-            out = orig(*args, **kw)
-            self.stats.append(torch.stack(
-                [out.max_tile_count.long(),
-                 out.max_tiles_per_gaussian_seen.long()]))
-            return out
+        def recording(orig):
+            def rasterize(*args, **kw):
+                out = orig(*args, **kw)
+                self.stats.append(torch.stack(
+                    [out.max_tile_count.long(),
+                     out.max_tiles_per_gaussian_seen.long()]))
+                return out
+            return rasterize
 
-        self.orig, train.rasterize = orig, recording
+        for m, orig in zip(self.mods, self.origs):
+            m.rasterize = recording(orig)
         return self
 
     def __exit__(self, *exc):
-        self.mod.rasterize = self.orig
+        for m, orig in zip(self.mods, self.origs):
+            m.rasterize = orig
 
     def maxima(self):
         """(densest tile, widest Gaussian) over the recorded renders."""
@@ -1660,6 +1686,296 @@ def phase_recipe(device, scene, heightfield, iterations=30):
     return k1 + calib[0], k2
 
 
+CLI_ARTIFACTS = ("altitude", "acc_opacity", "final", "raw_render", "cc", "gt",
+                 "nadir_pov", "nadirpovsampled", "nadiraltitudesampled",
+                 "nadir_altitude_diff", "flowmatched_altitude",
+                 "flow_matched_image", "gt_flowmatch")  # tests/test_cli.py
+
+
+def phase_cli(device, scene, width=1024, scale=142.0, n_views=7, hf_res=768,
+              n_buildings=24, iterations=100, resume_iterations=10,
+              frames=8, tile_capacity=16384, max_tiles_per_gaussian=1024):
+    """The CLI end to end through cli.main, on the card, in a temporary
+    directory: make-synthetic of train-1M-1024's scene (checked against
+    `scene`, the same scene built in memory), train (baseogs on the fused
+    route, a model save and a checkpoint every iterations/2, the MAE hook
+    and training_report at the end), the checkpoint restored into a fresh
+    Trainer (bit-equal), a resumed run from the first checkpoint, render
+    (the gather route with the plain blend, tile_capacity above every
+    render's densest tile), eval-dsm of its Nadir DSM, and the video's
+    frames. Neither imageio nor Pillow may be imported (both are blocked in
+    sys.modules for the phase). Returns the K1 and K2 launches of the
+    run."""
+    def libraries():
+        return sorted(m for m in sys.modules if m.split(".")[0] in
+                      ("imageio", "PIL") and sys.modules[m] is not None)
+
+    # the card's installation has Pillow (its TensorBoard's image encoder)
+    # and no imageio: both are made unimportable for the phase, so the run
+    # shows that the port reads and writes its files without them
+    libs_before = libraries()
+    blocked = {m: sys.modules.get(m) for m in ("imageio", "imageio.v2",
+                                               "PIL", "PIL.Image")}
+    sys.modules.update(dict.fromkeys(blocked))
+    try:
+        return _phase_cli(device, scene, width, scale, n_views, hf_res,
+                          n_buildings, iterations, resume_iterations, frames,
+                          tile_capacity, max_tiles_per_gaussian, libraries,
+                          libs_before)
+    finally:
+        for m, mod in blocked.items():
+            if mod is None:
+                del sys.modules[m]
+            else:
+                sys.modules[m] = mod
+
+
+def _phase_cli(device, scene, width, scale, n_views, hf_res, n_buildings,
+               iterations, resume_iterations, frames, tile_capacity,
+               max_tiles_per_gaussian, libraries, libs_before):
+    import contextlib
+    import io
+    import tempfile
+
+    import torch
+
+    from eogs2_tpu_torch import cli
+    from eogs2_tpu_torch import train as train_mod
+    from eogs2_tpu_torch.config import baseogs
+    from eogs2_tpu_torch.io.geotiff import read_geotiff
+    from eogs2_tpu_torch.io.ply import load_gaussians_ply
+    from eogs2_tpu_torch.ops.fused_raster import (fused_blend_bwd,
+                                                  fused_blend_fwd)
+    from eogs2_tpu_torch.pipeline import nadir_dsm
+    from eogs2_tpu_torch.rasterizer import RasterizeConfig
+    from eogs2_tpu_torch.render_artifacts import load_model
+    from eogs2_tpu_torch.scene import load_scene
+    from eogs2_tpu_torch.train import Trainer
+
+    dev = ["--device", str(device)]
+    stages, printed = {}, {}
+
+    def run(stage, argv):
+        buf = io.StringIO()
+        t = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rc = cli.main(argv)
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+        stages[stage] = time.perf_counter() - t
+        printed[stage] = buf.getvalue()
+        print(buf.getvalue(), end="", file=sys.stderr, flush=True)
+        print(f"cli {stage}: {stages[stage]:.1f} s", file=sys.stderr,
+              flush=True)
+        if rc != 0:
+            raise AssertionError(f"cli {argv[0]} returned {rc}")
+        gc.collect()
+
+    save_s = []
+    save_model = train_mod.Trainer.save_model
+
+    def timed_save(self, *a, **kw):
+        t = time.perf_counter()
+        it = save_model(self, *a, **kw)
+        save_s.append(time.perf_counter() - t)
+        return it
+
+    with tempfile.TemporaryDirectory() as tmp:
+        sdir, runp, run2 = (os.path.join(tmp, n) for n in ("scene", "run",
+                                                          "run2"))
+        fused_blend_fwd.launches = 0
+        fused_blend_bwd.launches = 0
+        run("make_synthetic", ["make-synthetic", *dev, "--out", sdir,
+                               "--n-views", str(n_views), "--width",
+                               str(width), "--height", str(width),
+                               "--hf-res", str(hf_res), "--n-buildings",
+                               str(n_buildings), "--scale", str(scale),
+                               "--seed", "11"])
+        loaded = load_scene(sdir, images_msi_path=os.path.join(sdir, "images"),
+                            load_pan=False, device=device)
+        pairs = list(zip(loaded.train_views + loaded.test_views,
+                         scene.train_views + scene.test_views))
+        if not (np.array_equal(loaded.init_xyz, scene.init_xyz)
+                and len(pairs) == len(scene.train_views + scene.test_views)
+                and all(a.name == b.name and (a.image is None) == (
+                    b.image is None) and (a.image is None or np.array_equal(
+                        a.image, b.image)) for a, b in pairs)):
+            raise AssertionError("the written scene does not load back as "
+                                 "the scene in memory")
+
+        half = iterations // 2
+        train_mod.Trainer.save_model = timed_save
+        try:
+            run("train", ["train", *dev, "--scene-dir", sdir, "--model-path",
+                          runp, "--preset", "baseogs", "--raster-mode",
+                          "fused", "--iterations", str(iterations),
+                          "--checkpoint-every", str(half),
+                          "--save-iterations", str(half),
+                          "--eval-during-training",
+                          "--big-testing-iterations", str(iterations)])
+        finally:
+            train_mod.Trainer.save_model = save_model
+        train_k = (fused_blend_fwd.launches, fused_blend_bwd.launches)
+        for rel in (f"point_cloud/iteration_{half}", "point_cloud/iteration_"
+                    f"{iterations}", f"chkpnt{half}", f"chkpnt{iterations}",
+                    f"camera_params/iteration_{iterations}/shading_test",
+                    f"optimizer/iteration_{iterations}/adam",
+                    "metrics.jsonl", "metrics.json", "cfg_args.json",
+                    "images"):
+            if not os.path.exists(os.path.join(runp, rel)):
+                raise AssertionError(f"train wrote no {rel}")
+        hook = re.findall(rf"\[{iterations}\] DSM MAE (\S+) m",
+                          printed["train"])
+        if len(hook) != 1 or not np.isfinite(float(hook[0])):
+            raise AssertionError(f"no finite MAE hook line at {iterations}")
+        hook_mae = float(hook[0])
+        ckpt = os.path.join(runp, f"chkpnt{iterations}")
+
+        # the last checkpoint into a fresh Trainer, built as the CLI builds
+        # it (the CLI's default seed 1337 for the init cloud)
+        t = time.perf_counter()
+        saved = torch.load(ckpt, map_location="cpu", weights_only=True)
+        fresh = Trainer(baseogs(sdir), load_scene(
+            sdir, images_msi_path=os.path.join(sdir, "images"),
+            load_pan=False, seed=1337, device=device),
+            RasterizeConfig(binning_mode="fused"), device=device).setup()
+        if fresh.restore(ckpt) != iterations or fresh.step != iterations:
+            raise AssertionError("restore returned another iteration")
+        mismatched = []
+        for group, names in (("params", FIELDS + ("features_rest",)),
+                             ("aux", ("alive", "max_radii2d",
+                                      "xyz_gradient_accum", "denom"))):
+            for f in names:
+                if not torch.equal(getattr(fresh.model, f).detach().cpu(),
+                                   saved[group][f]):
+                    mismatched.append(f"{group}.{f}")
+        for f, v in saved["shading"].items():
+            if not torch.equal(getattr(fresh.shading, f).detach().cpu(), v):
+                mismatched.append(f"shading.{f}")
+        moments = 0
+        for key, opt, leaves in (
+                ("g_opt", fresh.gauss_opt, {f: getattr(fresh.model, f)
+                                            for f in saved["g_opt"]["mu"]}),
+                ("c_opt", fresh.cam_opt, {f: getattr(fresh.shading, f)
+                                          for f in saved["c_opt"]["mu"]})):
+            for f, p in leaves.items():
+                st = opt.state[p]
+                moments += 2
+                if (int(st["step"]) != iterations or not torch.equal(
+                        st["exp_avg"].cpu(), saved[key]["mu"][f])
+                        or not torch.equal(st["exp_avg_sq"].cpu(),
+                                           saved[key]["nu"][f])):
+                    mismatched.append(f"{key}.{f}")
+        restore_s = time.perf_counter() - t
+        alive = saved["aux"]["alive"].numpy()
+        del fresh
+        gc.collect()
+        if mismatched:
+            raise AssertionError(f"restored state differs: {mismatched}")
+
+        run("resume", ["train", *dev, "--scene-dir", sdir, "--model-path",
+                       run2, "--preset", "baseogs", "--raster-mode", "fused",
+                       "--iterations", str(resume_iterations),
+                       "--start-checkpoint",
+                       os.path.join(runp, f"chkpnt{half}")])
+        if not os.path.exists(os.path.join(
+                run2, "point_cloud", f"iteration_{half + resume_iterations}")):
+            raise AssertionError("the resumed run saved no model at its step")
+        k1, k2 = fused_blend_fwd.launches, fused_blend_bwd.launches
+
+        rargs = ["--scene-dir", sdir, "--model-path", runp,
+                 "--tile-capacity", str(tile_capacity),
+                 "--max-tiles-per-gaussian", str(max_tiles_per_gaussian)]
+        with record_renders("pipeline", "renderer") as demand:
+            run("render", ["render", *dev, *rargs])
+        renders = len(demand.stats)
+        densest, widest = demand.maxima()
+        rcfg = RasterizeConfig(tile_capacity=tile_capacity, tile_chunk=64,
+                               max_tiles_per_gaussian=max_tiles_per_gaussian)
+        if densest >= tile_capacity or widest > max_tiles_per_gaussian:
+            raise AssertionError(f"a render clipped: densest tile {densest} "
+                                 f"(K {tile_capacity}), widest Gaussian "
+                                 f"{widest} tiles")
+        base = os.path.join(runp, "train_opNone", f"ours_{iterations}")
+        n_train = len(loaded.train_views)
+        empty = [k for k in CLI_ARTIFACTS
+                 if len(os.listdir(os.path.join(base, k))) != n_train]
+        if empty:
+            raise AssertionError(f"artifact kinds without every train view: "
+                                 f"{empty}")
+        nadir_tif = os.path.join(runp, "test_opNone", f"ours_{iterations}",
+                                 "dsm", "Nadir.tif")
+        written, _ = read_geotiff(nadir_tif)
+        model, it = load_model(runp, device=device)
+        _, dsm, _ = nadir_dsm(model, loaded, rcfg)
+        nadir_equal = bool(np.array_equal(written, dsm[:, :, 0].astype(
+            np.float32), equal_nan=True))
+        ply = load_gaussians_ply(os.path.join(
+            runp, "point_cloud", f"iteration_{iterations}",
+            "point_cloud.ply"))
+        ply_equal = all(np.array_equal(
+            ply[f].reshape(int(alive.sum()), -1),
+            saved["params"][f].numpy()[alive].reshape(int(alive.sum()), -1))
+            for f in FIELDS)
+        del model, saved
+        gc.collect()
+        if it != iterations or not nadir_equal or not ply_equal:
+            raise AssertionError(f"render: iteration {it}, Nadir.tif equal "
+                                 f"{nadir_equal}, PLY rows equal {ply_equal}")
+
+        run("eval_dsm", ["eval-dsm", *dev, "--pred", nadir_tif,
+                         "--gt-heightfield",
+                         os.path.join(sdir, "gt_heightfield.npy"),
+                         "--scale", str(scale)])
+        eval_mae = json.loads(printed["eval_dsm"].strip().splitlines()[-1])[
+            "mae"]
+        if not (np.isfinite(eval_mae) and abs(eval_mae - hook_mae) <= 0.05):
+            raise AssertionError(f"eval-dsm MAE {eval_mae}, hook's "
+                                 f"{hook_mae}")
+
+        with record_renders("pipeline", "renderer") as vdemand:
+            run("video", ["video", *dev, *rargs, "--n-frames", str(frames)])
+        vdensest, vwidest = vdemand.maxima()
+        frame_dir = os.path.join(runp, "video", "orbit_frames")
+        if sorted(os.listdir(frame_dir)) != [f"frame_{i:04d}.png"
+                                             for i in range(frames)]:
+            raise AssertionError("video frames missing")
+        ckpt_bytes = os.path.getsize(ckpt)
+        ply_bytes = os.path.getsize(os.path.join(
+            runp, "point_cloud", f"iteration_{iterations}", "point_cloud.ply"))
+
+    libs = libraries()
+    if libs != libs_before or libs:
+        raise AssertionError(f"the CLI imported {libs}")
+    if k2 != iterations + resume_iterations or k1 <= k2:
+        raise AssertionError(f"K1 {k1}, K2 {k2} launches over "
+                             f"{iterations} + {resume_iterations} iterations")
+    rendered = sum(1 for v in loaded.train_views + loaded.test_views
+                   if not v.is_virtual)
+    log(dict(phase="cli", config="train-1M-1024's scene through cli.main: "
+             f"make-synthetic; train baseogs --raster-mode fused, "
+             f"{iterations} iterations, model save and checkpoint every "
+             f"{half}, the MAE hook and training_report at {iterations}; "
+             f"restore; resume {resume_iterations} from chkpnt{half}; "
+             f"render (gather, plain blend, K {tile_capacity}, "
+             f"max_tiles_per_gaussian {max_tiles_per_gaussian}); eval-dsm; "
+             f"video {frames} frames",
+             init_gaussians=len(loaded.init_xyz), width=width,
+             stage_s=stages, save_model_s=save_s, restore_check_s=restore_s,
+             checkpoint_bytes=ckpt_bytes, ply_bytes=ply_bytes,
+             restored_moments=moments, render_views=rendered,
+             render_s_per_view=stages["render"] / rendered,
+             render_calls=renders, max_tile_count=densest,
+             max_tiles_per_gaussian_seen=widest,
+             video_max_tile_count=vdensest,
+             video_max_tiles_per_gaussian_seen=vwidest,
+             hook_mae=hook_mae, eval_dsm_mae=eval_mae,
+             train_k1_k2=train_k, k1_launches=k1, k2_launches=k2,
+             nadir_tif_equal=nadir_equal, ply_rows_equal=ply_equal,
+             **CARD))
+    return k1, k2
+
+
 def dense_serve_cfg(model, view, scene, width):
     """gather + use_pallas for serving, its capacities bucketed from the
     three renders' demand (view, sun, Nadir), so that nothing clips.
@@ -1904,6 +2220,8 @@ def main() -> int:
         device, scene)
     gc.collect()
     recipe_k1, recipe_k2 = phase_recipe(device, scene, heightfield)
+    gc.collect()
+    cli_k1, cli_k2 = phase_cli(device, scene)
     del scene
     gc.collect()
     k4_serve_launches, k4_serve, k4_serve_at = phase_serve_dense(device)
@@ -1927,7 +2245,7 @@ def main() -> int:
     log({"kernels": [
         entry("fused_blend_fwd (K1)", "fused_blend_fwd.cu",
               "fused_raster.py:532", serve_launches + k1_launches
-              + recipe_k1, view,
+              + recipe_k1 + cli_k1, view,
               max_abs_err=max(max(r["max_abs_err_ch0_4"],
                                   r["max_abs_err_final_t"])
                               for r in (*per_render.values(),
@@ -1937,7 +2255,7 @@ def main() -> int:
                                                  *k1_at.values())),
               **per_step(k1_at)),
         entry("fused_blend_bwd (K2)", "fused_blend_bwd.cu",
-              "fused_raster.py:614", k2_launches + recipe_k2, k2,
+              "fused_raster.py:614", k2_launches + recipe_k2 + cli_k2, k2,
               max_abs_err=max(r["max_abs_err"] for r in k2_at.values()),
               max_row_rel_err=max(k2_small_err, *(r["max_row_rel_err"]
                                                   for r in k2_at.values())),

@@ -5,12 +5,18 @@ which stays the reference). Module layout and names mirror ``eogs2_tpu``
 so each counterpart is easy to find. This package imports neither JAX nor
 anything of ``eogs2_tpu``.
 
-Ported so far, on the ``fused`` raster route: the serving path (preprocess
--> demand-sized emission + sort -> the K1 blend kernel,
-``csrc/fused_blend_fwd.cu``; sun resampling, shading, the Nadir DSM) and
-the training path of the baseogs recipe (``train.Trainer``: three renders
-per step, each backward through the K2 kernel ``csrc/fused_blend_bwd.cu``,
-the loss stack, Adam, densification statistics, pruning).
+Ported so far: every route of ``rasterize`` with its kernels (``fused``:
+K1/K2, ``csrc/fused_blend_{fwd,bwd}.cu``, and K3, their row-payload load;
+``gather``/``sorted``: the plain dense blend or K4,
+``csrc/blend_tiles_{fwd,bwd}.cu``); the serving path (sun resampling,
+shading, the Nadir DSM and its MAE); the single-modality training recipes
+(``train.Trainer``: three renders per step, the loss stack, Adam,
+densification, opacity resets, early stopping, hooks, reports, model saves
+and checkpoints); and the host-side surface: the CLI (``cli.py``),
+``checkpoint.py``, ``render_artifacts.py``, ``video.py``, ``flow.py``,
+``observability.py`` and the file formats of ``io/`` (TIFF, PNG and PLY
+in numpy, so neither imageio nor Pillow is needed). ROADMAP.md lists what
+is left; those parts raise NotImplementedError naming their item.
 """
 
 __version__ = "0.1.0"

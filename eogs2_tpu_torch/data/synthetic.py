@@ -8,16 +8,15 @@ camera appended, train/test split), and ground-truth images rendered
 analytically by marching each pixel's affine ray into the heightfield, with
 cast sun shadows.
 
-The JAX package's ``generate_scene`` is split in two:
-:func:`make_scene_arrays` returns the metadata and the images in memory (no
-file and no imageio needed, e.g. on a machine without imageio), and
-:func:`write_scene` writes the directory (``affine_models.json``,
-``images/*.tif``, the split files, the ground-truth heightfield), importing
-imageio only there. :func:`scene_from_arrays` turns the in-memory form into
-a ``SceneData`` through the same code path ``scene.load_scene`` takes after
-reading files. Only the single-modality ("msi") scene is built: the
-panchromatic companions of ``modality="ms"`` arrive with the PAN
-modalities (ROADMAP Queue 1 item 9).
+:func:`generate_scene` writes the scene directory as the JAX package's
+does, in two steps: :func:`make_scene_arrays` returns the metadata and the
+images in memory, and :func:`write_scene` writes the directory
+(``affine_models.json``, ``images/*.tif`` through ``io/tiff.py``, the split
+files, the ground-truth heightfield). :func:`scene_from_arrays` turns the
+in-memory form into a ``SceneData`` through the same code path
+``scene.load_scene`` takes after reading files. Only the single-modality
+("msi") scene is built: the panchromatic companions of ``modality="ms"``
+arrive with the PAN modalities (ROADMAP Queue 1 item 9).
 """
 
 from __future__ import annotations
@@ -27,6 +26,8 @@ import os
 from typing import Dict, List, NamedTuple
 
 import numpy as np
+
+from eogs2_tpu_torch.io.tiff import write_tiff
 
 
 def _heightfield(res: int, n_buildings: int, rng, alt_range=(-0.35, 0.35)):
@@ -210,11 +211,9 @@ def make_scene_arrays(
 
 def write_scene(s: SyntheticScene, out_dir: str) -> str:
     """Write a reference-schema scene directory; returns its path."""
-    import imageio.v2 as iio
-
     os.makedirs(os.path.join(out_dir, "images"), exist_ok=True)
     for name, img in s.images.items():
-        iio.imwrite(os.path.join(out_dir, "images", name), img)
+        write_tiff(os.path.join(out_dir, "images", name), img)
     with open(os.path.join(out_dir, "affine_models.json"), "w") as f:
         json.dump(s.metadatas, f)
     with open(os.path.join(out_dir, "train.txt"), "w") as f:
@@ -224,6 +223,30 @@ def write_scene(s: SyntheticScene, out_dir: str) -> str:
     np.save(os.path.join(out_dir, "gt_heightfield.npy"), s.heightfield)
     np.save(os.path.join(out_dir, "gt_texture.npy"), s.texture)
     return out_dir
+
+
+def generate_scene(
+    out_dir: str,
+    n_views: int = 9,
+    width: int = 128,
+    height: int = 128,
+    hf_res: int = 256,
+    n_buildings: int = 6,
+    seed: int = 0,
+    scale: float = 25.0,
+    sun_el_az=(55.0, 120.0),
+    modality: str = "msi",
+) -> str:
+    """Write a reference-schema scene directory; returns its path (JAX's
+    generate_scene; modality "ms" is ROADMAP Queue 1 item 9)."""
+    if modality != "msi":
+        raise NotImplementedError(
+            f"modality {modality!r} (the PAN companions) is not ported yet "
+            f"(ROADMAP Queue 1 item 9)")
+    return write_scene(make_scene_arrays(
+        n_views=n_views, width=width, height=height, hf_res=hf_res,
+        n_buildings=n_buildings, seed=seed, scale=scale,
+        sun_el_az=sun_el_az), out_dir)
 
 
 def scene_from_arrays(s: SyntheticScene, device=None, **kw):

@@ -21,6 +21,7 @@ import numpy as np
 
 from eogs2_tpu_torch import native
 from eogs2_tpu_torch.io.geotiff import Affine, read_geotiff
+from eogs2_tpu_torch.io.png import read_png
 
 
 def dsm_pointwise_diff(pred_dsm, gt_dsm):
@@ -103,9 +104,7 @@ class MaeComputer:
                 vis_mask = np.asarray(read_geotiff(vp)[0]) > 0.5
             tp = os.path.join(masks_dir, "tree_masks", f"{aoi_id}.png")
             if os.path.exists(tp):
-                import imageio.v2 as iio
-
-                tree_mask = np.asarray(iio.imread(tp))
+                tree_mask = read_png(tp)
                 if tree_mask.ndim == 3:
                     tree_mask = tree_mask[..., 0]
                 tree_mask = tree_mask > 0.5

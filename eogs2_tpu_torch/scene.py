@@ -6,11 +6,12 @@ Counterpart of ``eogs2_tpu/scene.py``; parity targets ``dataset_affine.py``
 the synthetic Nadir camera appended to test :305-328) and
 ``dataset_MS_affine.py`` (paired {pan, msi} metadata).
 :func:`build_scene` assembles a SceneData from metadata and images already
-in memory; :func:`load_scene` reads them from a scene directory (imageio is
-imported only when an image is read) and calls it. Of the GT rescalers,
-the default ``clamper`` and ``identity`` are ported; the others arrive with
-the remaining recipes (ROADMAP Queue 1 item 9). PLY-based init is not
-ported (item 12).
+in memory; :func:`load_scene` reads them from a scene directory (TIFFs and
+PNGs through ``io/tiff.py`` and ``io/png.py``, which need neither imageio
+nor Pillow) and calls it, with the init points of ``<scene>/<name>.ply``
+when ``input_ply_name`` is given (dataset_MS_affine.py:116-121). Of the GT
+rescalers, the default ``clamper`` and ``identity`` are ported; the others
+arrive with the remaining recipes (ROADMAP Queue 1 item 9).
 """
 
 from __future__ import annotations
@@ -23,6 +24,10 @@ from typing import Dict, List, Optional
 import numpy as np
 
 from eogs2_tpu_torch.cameras import AffineCamera, camera_from_reference_convention
+from eogs2_tpu_torch.io import read_with_library
+from eogs2_tpu_torch.io.ply import read_point_cloud
+from eogs2_tpu_torch.io.png import read_png
+from eogs2_tpu_torch.io.tiff import read_tiff
 
 
 @dataclasses.dataclass
@@ -98,9 +103,14 @@ def _load_image(images_dir: str, name: str, need_rescale: bool):
     path = os.path.join(images_dir, name)
     if not os.path.exists(path):
         return None
-    import imageio.v2 as iio
-
-    img = np.asarray(iio.imread(path)).astype(np.float32)
+    ext = os.path.splitext(name)[1].lower()
+    if ext in (".tif", ".tiff"):
+        img = read_tiff(path)[0]
+    elif ext == ".png":
+        img = read_png(path)
+    else:
+        img = read_with_library(path, f"a {ext or 'extension-less'} image")
+    img = np.asarray(img).astype(np.float32)
     if img.ndim == 2:
         img = img[..., None]
     if need_rescale:
@@ -130,13 +140,15 @@ def build_scene(
     scale_factor_z: float = 1.0,
     rescaler_name: str = "clamper",
     device=None,
+    init_points=None,
 ) -> SceneData:
     """SceneData from affine_models.json's content and images in memory.
 
     metadatas: the single-modality list, or the MS {"pan", "msi"} dict;
     images_msi / images_pan: image file name -> [C,H,W] float32 (a missing
     name leaves the view without an image); split: (train names, test
-    names) as in train.txt / test.txt, or None to train on every view."""
+    names) as in train.txt / test.txt, or None to train on every view;
+    init_points: (xyz [N,3], rgb [N,3]) in place of the uniform cloud."""
     if isinstance(metadatas, dict):  # MS format
         groups = {k: v for k, v in metadatas.items() if k in ("pan", "msi")}
     else:
@@ -195,11 +207,14 @@ def build_scene(
             v.image = np.asarray(rescale(v.image), np.float32)
 
     model = model_md["model"]
-    max_world = list(model["max_world"])
-    max_world[2] = max_world[2] * scale_factor_z  # z-stretch of the init volume
-    xyz, rgb = uniform_point_init(
-        model["min_world"], max_world, model["scale"], target_density, seed
-    )
+    if init_points is not None:
+        xyz, rgb = (np.asarray(x, np.float32) for x in init_points)
+    else:
+        max_world = list(model["max_world"])
+        max_world[2] = max_world[2] * scale_factor_z  # z-stretch of the init volume
+        xyz, rgb = uniform_point_init(
+            model["min_world"], max_world, model["scale"], target_density, seed
+        )
     radius = np.linalg.norm(xyz - xyz.mean(0), axis=1).max() * 2.0
 
     return SceneData(
@@ -227,10 +242,13 @@ def load_scene(
     seed: int = 0,
     scale_factor_z: float = 1.0,
     rescaler_name: str = "clamper",
+    input_ply_name: Optional[str] = None,
     device=None,
 ) -> SceneData:
     """Load a scene directory holding affine_models.json (+ train/test.txt),
-    with the images of images_msi_path / images_pan_path when given.
+    with the images of images_msi_path / images_pan_path when given, and
+    the init points of ``<path>/<input_ply_name>.ply`` when that is given
+    (dataset_affine.py:298-302) instead of the uniform cloud.
 
     Handles the single-modality list format and the MS {"pan", "msi"}
     format of the reference's to_affine output."""
@@ -265,4 +283,6 @@ def load_scene(
         split=split, target_density=target_density, load_msi=load_msi,
         load_pan=load_pan, seed=seed, scale_factor_z=scale_factor_z,
         rescaler_name=rescaler_name, device=device,
+        init_points=(None if input_ply_name is None else read_point_cloud(
+            os.path.join(path, f"{input_ply_name}.ply"))),
     )

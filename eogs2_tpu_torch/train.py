@@ -42,16 +42,20 @@ its Adam-moment surgery (``densify.py``; the split's draws come from the
 Trainer's generator), early stopping, the ``log_hook``, the ``eval_hook``
 every ``testing_interval`` (e.g. the Nadir DSM's MAE,
 ``pipeline.evaluate_dsm_mae``), ``training_report`` at
-``big_testing_iterations``, and ``calibrate_opacity_init``.
-Still to port (ROADMAP Queue 1): flow matching, colour reset, PAN
-modalities and pansharpening (item 9); checkpoints and model saves (item
-12); the multi-device backends (item 13). The Trainer raises
-NotImplementedError when a config asks for one of them.
+``big_testing_iterations``, ``calibrate_opacity_init``, model saves
+(``save_model``, at ``save_iterations``) and full checkpoints
+(``checkpoint.py``, at ``checkpoint_iterations``; ``restore`` resumes from
+one), in JAX's directory layout with a ``torch.save`` file where JAX
+writes an orbax directory. Still to port (ROADMAP Queue 1): flow matching,
+colour reset, ``normalize_colors_before_saving``, PAN modalities and
+pansharpening (item 9); the multi-device backends (item 13). The Trainer
+raises NotImplementedError when a config asks for one of them.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
 import time
 from typing import Callable, Dict, NamedTuple, Optional, Tuple
 
@@ -60,6 +64,8 @@ import torch
 
 from eogs2_tpu_torch import losses as L
 from eogs2_tpu_torch.cameras import AffineCamera
+from eogs2_tpu_torch.checkpoint import (restore_checkpoint, save_checkpoint,
+                                        state_to_tree)
 from eogs2_tpu_torch.config import TrainConfig
 from eogs2_tpu_torch.densify import (apply_prune, densify_clone,
                                      densify_split, prune_mask,
@@ -67,8 +73,9 @@ from eogs2_tpu_torch.densify import (apply_prune, densify_clone,
                                      reset_densification_stats,
                                      reset_opacity_with_moments)
 from eogs2_tpu_torch.device import resolve_device
-from eogs2_tpu_torch.model import (GaussianModel, add_densification_stats,
-                                   init_from_points)
+from eogs2_tpu_torch.io.ply import save_gaussians_ply
+from eogs2_tpu_torch.model import (GaussianModel, GaussianParams,
+                                   add_densification_stats, init_from_points)
 from eogs2_tpu_torch.ops.projection import TILE
 from eogs2_tpu_torch.ops.resample import grid_sample
 from eogs2_tpu_torch.ops.sh import SH2RGB
@@ -533,6 +540,7 @@ class Trainer:
         self.metrics_history = []
         # one entry per densify event: counts and alive (host ints)
         self.densify_log = []
+        self.step = 0  # optimizer steps taken (JAX's TrainState.step)
         return self
 
     def set_raster_cfg(self, raster_cfg: RasterizeConfig):
@@ -576,9 +584,6 @@ class Trainer:
             todo.append(("the colour reset", 9))
         if o.normalize_colors_before_saving:
             todo.append(("normalize_colors_before_saving", 9))
-        if any(i <= iters for i in (*cfg.save_iterations,
-                                    *cfg.checkpoint_iterations)):
-            todo.append(("model saves and checkpoints", 12))
         if todo:
             what, item = todo[0]
             raise NotImplementedError(f"{what} " + _UNPORTED.format(item))
@@ -650,6 +655,7 @@ class Trainer:
         shear_draw = torch.randn(2, generator=g, device=dev)
         metrics = step(self.model, self.shading, view_idx, bg_draw,
                        shear_draw, gates)
+        self.step += 1
         self._maintenance(iteration)
         return metrics
 
@@ -659,7 +665,10 @@ class Trainer:
         JAX's order within an iteration: the step and maintenance, the
         capacity grow (every 50), the logged means with the log hook and
         early stopping (every tb_log_interval; a stop breaks before this
-        iteration's eval hook), the eval hook, training_report."""
+        iteration's eval hook), the eval hook, training_report, the model
+        save (save_iterations), the checkpoint (checkpoint_iterations, to
+        ``<model_path>/chkpnt<iteration>``). After ``restore`` the loop
+        runs 1..n again, as JAX's does."""
         o, log = self.cfg.optimization, self.cfg.logging
         iters = max_iterations or o.iterations
         self._check_supported(iters)
@@ -707,6 +716,14 @@ class Trainer:
                 self.eval_hook(self, self.model, iteration)
             if iteration in (log.big_testing_iterations or ()):
                 self.training_report(iteration)
+            # mid-run model saves (train_pan.py:622-660)
+            if iteration in self.cfg.save_iterations:
+                print(f"[ITER {iteration}] saving gaussians", flush=True)
+                self.save_model(iteration)
+            if iteration in self.cfg.checkpoint_iterations:
+                path = os.path.join(log.model_path, f"chkpnt{iteration}")
+                save_checkpoint(path, self, iteration)
+                print(f"checkpoint saved: {path}")
         return self.model
 
     def calibrate_opacity_init(self, target_acc: float = 0.999,
@@ -740,6 +757,49 @@ class Trainer:
         print(f"calibrated opacity_init_value = {value:.4f} "
               f"(mean acc opacity target {target_acc})")
         return value
+
+    def save_model(self, iteration: Optional[int] = None) -> int:
+        """Model save (train_pan.py:622-660): the alive Gaussians' PLY
+        (``point_cloud/iteration_N/point_cloud.ply``, the bytes JAX writes
+        for the same rows), the shading parameters and the test cameras'
+        (``camera_params/iteration_N/{shading,shading_test}``) and the Adam
+        moments (``optimizer/iteration_N/adam``: g_mu, g_nu, c_mu, c_nu by
+        field), each a torch.save file of CPU tensors where JAX writes an
+        orbax directory. N is ``iteration``, else the step count. Returns
+        N."""
+        it = self.step if iteration is None else int(iteration)
+        root = self.cfg.logging.model_path
+        alive = self.model.alive.cpu().numpy()
+        p = {f: getattr(self.model, f).detach().cpu().numpy()[alive]
+             for f in GaussianParams._fields}
+        save_gaussians_ply(
+            os.path.join(root, "point_cloud", f"iteration_{it}",
+                         "point_cloud.ply"),
+            p["xyz"], p["features_dc"], p["features_rest"], p["opacity"],
+            p["scaling"], p["rotation"])
+        tree = state_to_tree(self)
+        cam_dir = os.path.join(root, "camera_params", f"iteration_{it}")
+        opt_dir = os.path.join(root, "optimizer", f"iteration_{it}")
+        for d in (cam_dir, opt_dir):
+            os.makedirs(d, exist_ok=True)
+        test_sh = self.test_shading_params()
+        torch.save(tree["shading"], os.path.join(cam_dir, "shading"))
+        torch.save({f.name: getattr(test_sh, f.name).cpu()
+                    for f in dataclasses.fields(test_sh)
+                    if getattr(test_sh, f.name) is not None},
+                   os.path.join(cam_dir, "shading_test"))
+        # JAX drops absent and zero-size moments (orbax refuses them)
+        adam = {f"{g}_{m}": {k: v for k, v in tree[f"{g}_opt"][m].items()
+                             if v is not None and v.numel() > 0}
+                for g in ("g", "c") for m in ("mu", "nu")}
+        torch.save(adam, os.path.join(opt_dir, "adam"))
+        return it
+
+    def restore(self, path: str) -> int:
+        """Resume from a checkpoint written at checkpoint_iterations, with
+        the Adam states (train_pan.py:122-124), in place; returns the saved
+        iteration."""
+        return restore_checkpoint(path, self)
 
     def test_shading_params(self) -> CameraShadingParams:
         """Shading parameters for test cameras: the train cameras' colour

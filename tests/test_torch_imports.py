@@ -45,13 +45,35 @@ def test_importing_every_module_loads_no_jax():
     for m in ("ops.fused_raster", "ops.blend_cuda", "ops.blend",
               "ops.binning", "ops.pair_pipeline", "pipeline", "train",
               "losses", "config", "densify", "ops.ssim", "ops.knn",
-              "data.synthetic"):
+              "data.synthetic", "cli", "checkpoint", "flow", "observability",
+              "render_artifacts", "video", "io.tiff", "io.png", "io.ply"):
         assert "eogs2_tpu_torch." + m in mods, m
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"
         "    importlib.import_module(m)\n"
         f"roots = {FORBIDDEN_ROOTS!r}\n"
+        "bad = sorted(m for m in sys.modules\n"
+        "             if any(m == r or m.startswith(r + '.') for r in roots))\n"
+        "print(repr(bad))\n"
+    )
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        p for p in (ROOT, os.environ.get("PYTHONPATH")) if p))
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip().splitlines()[-1] == "[]", proc.stdout
+
+
+def test_importing_every_module_loads_no_optional_library():
+    """The card's machine has none of these: no module of the package may
+    need one to import (a module imports one, where it must, only in the
+    function that reads a file outside the port's own codecs)."""
+    code = (
+        "import importlib, sys\n"
+        f"for m in {_modules()!r}:\n"
+        "    importlib.import_module(m)\n"
+        "roots = ('imageio', 'PIL', 'cv2', 'orbax', 'tensorboard')\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if any(m == r or m.startswith(r + '.') for r in roots))\n"
         "print(repr(bad))\n"

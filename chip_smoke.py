@@ -108,12 +108,25 @@ the dense routes were added, so that their times stay comparable):
      hook's MAE; the video's 8 frames. Stage seconds, save_model's seconds,
      the checkpoint's bytes, the render's seconds per view. Neither
      imageio nor Pillow may be imported;
- 12. the safe route (gather, the plain dense blend) in one training step at
+ 12. the paper's recipe (eogsplus: 3PAN, flow matching, the flow bake, the
+     colour operations) on the scene of phase 5 in modality "ms" (each
+     view's PAN companion derived from its MSI image, run after phase 11):
+     30 iterations of Trainer.train on the fused route with tile_cull, the
+     sun, the random camera and the flow phase in every step, the flow bake
+     at 20, a colour reset at 25, normalize_colors_before_saving at 30;
+     then 12 steps with the flow phase off and 10 with it on again, each
+     timed; the bake's shifts and seconds, the colour reset's mask count
+     and seconds; K1 and K2 at the step's main render against their plain
+     versions (phase 5's tolerances); phase_correlation_shift of a PAN
+     render against itself rolled by (+3, -2) px within 0.05 px; then the
+     dual MS mode "fixed" (msi and pan per step: 6 renders) for 5 steps
+     with the flow phase and 5 without. K1 and K2 launches of both runs;
+ 13. the safe route (gather, the plain dense blend) in one training step at
      256x256 with about 20k Gaussians, on the card and on the CPU from the
      same state and draws: loss terms within rel 1e-4, every gradient
      within 2e-4 of its largest value; it launches no hand-written kernel;
- 13. the kernel table line (K1's and K2's launches include phase 10's and
-     phase 11's), then the last line.
+ 14. the kernel table line (K1's and K2's launches include phases 10, 11
+     and 12), then the last line.
 """
 
 from __future__ import annotations
@@ -763,8 +776,8 @@ class capture_blend_calls:
 def train_scene(device, width=1024, scale=142.0, n_views=7, hf_res=768,
                 n_buildings=24):
     """The synthetic scene of scripts/train_scale.py, built once in memory
-    and shared by the training phases: (scene, host seconds, its
-    ground-truth heightfield)."""
+    and shared by the training phases: (scene, host seconds, its arrays:
+    images, metadata, the ground-truth heightfield)."""
     from eogs2_tpu_torch.data.synthetic import (make_scene_arrays,
                                                 scene_from_arrays)
 
@@ -777,7 +790,7 @@ def train_scene(device, width=1024, scale=142.0, n_views=7, hf_res=768,
     log(dict(phase="train_scene", init_gaussians=len(scene.init_xyz),
              train_views=len(scene.train_views), width=width, scale=scale,
              host_s=scene_s, **CARD))
-    return scene, scene_s, arrays.heightfield
+    return scene, scene_s, arrays
 
 
 def train_recipe(iterations):
@@ -1976,6 +1989,323 @@ def _phase_cli(device, scene, width, scale, n_views, hf_res, n_buildings,
     return k1, k2
 
 
+# ----------------------------------------------------------------------------
+# the paper's eogsplus recipe: 3PAN, flow matching, the flow bake, the colour
+# operations; then the dual MS mode
+# ----------------------------------------------------------------------------
+
+
+def eogsplus_config(iterations, mode=None):
+    """eogsplus (3PAN, early stopping on photometric, constant-displacement
+    flow matching) with the sun, the random camera and the flow phase from
+    iteration 1 (the preset starts flow matching at 1500), the flow bake at
+    2/3 of the run, a colour reset 5 iterations later, and
+    normalize_colors_before_saving at the last iteration; early stopping
+    with patience for every interval. ``mode`` switches the PAN mode (e.g.
+    the dual MS "fixed")."""
+    from eogs2_tpu_torch.config import _apply_mode, eogsplus
+
+    cfg = eogsplus(iterations=iterations)
+    if mode is not None:
+        cfg = _apply_mode(cfg, mode)
+    o = cfg.optimization
+    o.iterstart_shadowmapping = 0
+    o.iterstart_L_new_resample = 0
+    o.iterstart_flowmatching = 0
+    o.itr_apply_flowmatching_to_affine = 2 * iterations // 3
+    o.color_reset_iterations = 2 * iterations // 3 + 5
+    o.normalize_colors_before_saving = True
+    o.early_stopping.patience = iterations
+    cfg.logging.tb_log_interval = 5
+    return cfg
+
+
+class record_calls:
+    """Within the block, `owner.name` records each call's arguments and
+    result (the original runs as usual)."""
+
+    def __init__(self, owner, name):
+        self.owner, self.name, self.calls = owner, name, []
+
+    def __enter__(self):
+        orig = self.orig = getattr(self.owner, self.name)
+
+        def wrapper(*args, **kw):
+            out = orig(*args, **kw)
+            self.calls.append((args, kw, out))
+            return out
+
+        setattr(self.owner, self.name, wrapper)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.owner, self.name, self.orig)
+
+
+def timed_steps(tr, iterations):
+    """Host-clock ms of tr.train_step at each of `iterations`, each ending
+    in a synchronize; returns (ms list, metrics list)."""
+    import torch
+
+    ms, metrics = [], []
+    for it in iterations:
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        metrics.append(tr.train_step(it))
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t) * 1e3)
+    return ms, metrics
+
+
+def check_metrics(steps, what):
+    import torch
+
+    every = torch.stack([torch.stack([m[k].double() for k in m])
+                         for m in steps])
+    if not bool(torch.isfinite(every).all()):
+        raise AssertionError(f"{what}: non-finite step metrics")
+    if any(int(v) for m in steps for k, v in m.items()
+           if k.endswith("clipped_pairs")):
+        raise AssertionError(f"{what}: a render clipped")
+
+
+def phase_eogsplus(device, arrays, iterations=30, fixed_iterations=5,
+                   extra=10):
+    """The paper's recipe at full width (cell train-1M-1024-eogsplus): the
+    train-1M-1024 scene in modality "ms" (each view's PAN companion derived
+    from `arrays`, the MSI scene phase 5 built), eogsplus on the fused route
+    with tile_cull: `iterations` iterations of Trainer.train with the flow
+    phase in every step, the flow bake, the colour reset and
+    normalize_colors_before_saving; then `extra` steps with the flow phase
+    off and `extra` with it on again; then the dual MS mode "fixed" (msi and
+    pan per step) for `fixed_iterations` steps with the flow phase and as
+    many without. K1 and K2 at the eogsplus step's main render against
+    their plain versions; one profiled eogsplus step;
+    phase_correlation_shift of a PAN render against itself rolled by
+    (+3, -2) px. Returns the K1 and K2 launches of the
+    phase's main path (comparisons excluded) and the K1/K2 reports."""
+    import torch
+
+    from eogs2_tpu_torch import train as train_mod
+    from eogs2_tpu_torch.data.synthetic import scene_from_arrays, with_pan
+    from eogs2_tpu_torch.flow import phase_correlation_shift
+    from eogs2_tpu_torch.ops.fused_raster import (SortedPairs,
+                                                  fused_blend_bwd,
+                                                  fused_blend_bwd_plain,
+                                                  fused_blend_fwd,
+                                                  fused_blend_fwd_plain)
+    from eogs2_tpu_torch.pipeline import render_view_full
+    from eogs2_tpu_torch.rasterizer import RasterizeConfig
+    from eogs2_tpu_torch.train import Trainer
+
+    t0 = time.perf_counter()
+    ms_arrays = with_pan(arrays)
+    rcfg = RasterizeConfig(binning_mode="fused", tile_cull=True)
+    cfg = eogsplus_config(iterations)
+    o = cfg.optimization
+    scene = scene_from_arrays(ms_arrays, device=device,
+                              load_msi=cfg.model.load_msi,
+                              load_pan=cfg.model.load_pan)
+    tr = Trainer(cfg, scene, rcfg, device=device).setup()
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    if ([n for n, _ in tr.modal_views] != ["pan"] or tr.pan_mode != "identity"
+            or tr.consts.images.shape[1] != 3):
+        raise AssertionError("eogsplus did not set up 3PAN")
+    start = {f: getattr(tr.model, f).detach().clone() for f in FIELDS}
+    width = int(tr.consts.native_wh[0])
+
+    # the counted run: counts set to 0 just before, read just after
+    fused_blend_fwd.launches = 0
+    fused_blend_bwd.launches = 0
+    step_ms, steps, events = {}, {}, {}
+    train_step = tr.train_step
+
+    def timed_step(iteration):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        m = train_step(iteration)
+        torch.cuda.synchronize()
+        step_ms[iteration] = (time.perf_counter() - t) * 1e3
+        steps[iteration] = m
+        return m
+
+    def timed(name, fn):
+        def run():
+            k1 = fused_blend_fwd.launches
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            events[name] = dict(s=time.perf_counter() - t,
+                                k1_launches=fused_blend_fwd.launches - k1)
+        return run
+
+    affines0 = tr.consts.affines.clone()
+    tr.train_step = timed_step
+    tr.apply_flowmatching_to_affine = timed(
+        "flow_bake", tr.apply_flowmatching_to_affine)
+    tr.color_reset = timed("color_reset", tr.color_reset)
+    with record_calls(train_mod, "phase_correlation_shift") as shifts, \
+            record_calls(train_mod, "apply_color_reset") as resets:
+        t = time.perf_counter()
+        tr.train(progress=False)
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t
+    del tr.train_step, tr.apply_flowmatching_to_affine, tr.color_reset
+    ran = sorted(steps)
+    if ran != list(range(1, iterations + 1)):
+        raise AssertionError(f"iterations run: {ran}")
+    check_metrics(list(steps.values()), "eogsplus")
+    if not all(float(m["flow_mag"]) > 0 for m in steps.values()):
+        raise AssertionError("a step's flow phase found no flow")
+    bake = [(float(out[0]), float(out[1])) for _, _, out in shifts.calls]
+    if len(bake) != len(tr.modal_views[0][1]) or "flow_bake" not in events:
+        raise AssertionError(f"the flow bake ran {len(bake)} shifts")
+    moved = (tr.consts.affines - affines0)[:, :2, 3].double() * width / 2
+    want = -torch.tensor(bake, dtype=torch.float64, device=moved.device)
+    if not torch.allclose(moved, want, atol=1e-3):
+        raise AssertionError(f"the baked affines moved {moved.tolist()}, "
+                             f"the shifts were {bake}")
+    if len(resets.calls) != 1:
+        raise AssertionError(f"{len(resets.calls)} colour resets")
+    mask = resets.calls[0][0][2]
+    reset_count = int((mask & tr.model.alive).sum())
+
+    # the flow phase's cost: the same step with the phase off (2 warm-up
+    # steps, then `extra`), then on again
+    it = iter(range(iterations + 1, iterations + 3 + 2 * extra))
+    o.flowmatching.apply_flowmatching = False
+    off_ms, off_steps = timed_steps(tr, [next(it) for _ in range(2 + extra)])
+    o.flowmatching.apply_flowmatching = True
+    on_ms, on_steps = timed_steps(tr, list(it))
+    k1_launches, k2_launches = fused_blend_fwd.launches, fused_blend_bwd.launches
+    check_metrics(off_steps + on_steps, "eogsplus, flow on/off")
+    if any(float(m["flow_mag"]) != 0 for m in off_steps):
+        raise AssertionError("the flow phase ran with its gate off")
+    n_views = len(tr.modal_views[0][1])
+    n_steps = iterations + 2 + 2 * extra
+    for name in ("flow_bake", "color_reset"):
+        if events[name]["k1_launches"] != 2 * n_views:
+            raise AssertionError(f"{name}: {events[name]} (want "
+                                 f"{2 * n_views} K1 launches)")
+    if (k2_launches != 3 * n_steps
+            or k1_launches != 3 * n_steps + 4 * n_views):
+        raise AssertionError(f"eogsplus: K1 {k1_launches}, K2 {k2_launches}"
+                             f" launches over {n_steps} steps, a bake and a "
+                             f"colour reset")
+    moved_params = {f: float((getattr(tr.model, f).detach() - x).abs().max())
+                    for f, x in start.items()}
+    if min(moved_params.values()) <= 0:
+        raise AssertionError(f"parameters did not move: {moved_params}")
+
+    # K1 and K2 at the eogsplus step's main render
+    with capture_blend_calls() as cap:
+        tr.train_step(iterations + 3 + 2 * extra)
+        torch.cuda.synchronize()
+    bwd = {c[0].data_ptr(): c for c in cap.bwd_calls}
+    calls = [bwd[p.data_ptr()] for p in cap.fwd_pays]
+    del cap, bwd
+    if len(calls) != 3:
+        raise AssertionError(f"captured {len(calls)} fused renders, want 3")
+    pay, tstart, cnt, out8, g_out8, gx = calls[0]
+    sp = SortedPairs(pay, tstart, cnt, None)
+    k1, k1_out8 = compare_k1(sp, gx)
+    if not torch.equal(k1_out8, out8):
+        raise AssertionError("K1 at the eogsplus main render differs from "
+                             "the step's own out8")
+    k1.update(ms=time_cuda(lambda: fused_blend_fwd(pay, tstart, cnt, gx), 10),
+              plain_ms=time_cuda(
+                  lambda: fused_blend_fwd_plain(pay, tstart, cnt, gx), 1),
+              **k1_bound(sp, gx))
+    k2, _ = compare_k2_at(sp, gx, out8, g_out8)
+    k2.update(ms=time_cuda(
+        lambda: fused_blend_bwd(pay, tstart, cnt, out8, g_out8, gx), 10),
+        plain_ms=time_cuda(lambda: fused_blend_bwd_plain(
+            pay, tstart, cnt, out8, g_out8, gx), 1),
+        **k2_bound(sp, gx, out8))
+    del calls, sp, k1_out8, pay, tstart, cnt, out8, g_out8
+    log(dict(phase="eogsplus_profile", **profile_run(
+        lambda: tr.train_step(iterations + 4 + 2 * extra)), **CARD))
+
+    # phase correlation on the card: a PAN render against itself rolled
+    view = tr.modal_views[0][1][0]
+    final = render_view_full(tr.model, view.camera, rcfg,
+                             shading=tr.shading, view_idx=0,
+                             pan_mode=tr.pan_mode)["final"]
+    ref = torch.from_numpy(final).to(device)
+    mov = torch.roll(ref, shifts=(-2, 3), dims=(1, 2))
+    dx, dy = (float(v) for v in phase_correlation_shift(ref, mov))
+    if abs(dx - 3.0) > 0.05 or abs(dy + 2.0) > 0.05:
+        raise AssertionError(f"phase correlation found ({dx}, {dy}), want "
+                             f"(3, -2)")
+    report = dict(
+        phase="eogsplus", cell="train-1M-1024-eogsplus",
+        recipe=(f"eogsplus (3PAN, early stopping on photometric, constant-"
+                f"displacement flow matching); sun, random camera and flow "
+                f"phase from iteration 1; flow bake at "
+                f"{o.itr_apply_flowmatching_to_affine}, colour reset at "
+                f"{o.color_reset_iterations}, normalize_colors_before_saving"
+                f" at {iterations}"),
+        config="fused, tile_cull, eogs_features",
+        init_gaussians=len(scene.init_xyz), width=width,
+        train_views=n_views, setup_s=setup_s,
+        train_s=train_s, iterations=iterations,
+        ms_per_step=statistics.median(step_ms[i]
+                                      for i in range(3, iterations + 1)),
+        step_ms=[step_ms[i] for i in ran],
+        ms_per_step_flow_off=statistics.median(off_ms[2:]),
+        step_ms_flow_off=off_ms,
+        ms_per_step_flow_on_again=statistics.median(on_ms),
+        step_ms_flow_on_again=on_ms,
+        flow_bake_s=events["flow_bake"]["s"],
+        flow_bake_k1_launches=events["flow_bake"]["k1_launches"],
+        flow_bake_shifts_px=bake,
+        color_reset_s=events["color_reset"]["s"],
+        color_reset_k1_launches=events["color_reset"]["k1_launches"],
+        color_reset_mask_count=reset_count,
+        flow_mag=[float(steps[i]["flow_mag"]) for i in ran],
+        photometric=[float(steps[i]["photometric"]) for i in ran],
+        early_stopping_iterations=[m["iteration"]
+                                   for m in tr.metrics_history],
+        phase_correlation_check=dict(rolled_px=[3, -2], found=[dx, dy]),
+        k1_launches=k1_launches, k2_launches=k2_launches,
+        k1_at_main_render=k1, k2_at_main_render=k2,
+        max_param_change=moved_params, **CARD)
+    del tr, scene
+    gc.collect()
+
+    # the dual MS mode: msi and pan per step
+    cfg = eogsplus_config(2 * fixed_iterations, mode="fixed")
+    scene = scene_from_arrays(ms_arrays, device=device)
+    tr = Trainer(cfg, scene, rcfg, device=device).setup()
+    if [n for n, _ in tr.modal_views] != ["msi", "pan"] or \
+            tr.pan_mode != "fixed":
+        raise AssertionError("fixed did not set up msi + pan")
+    fused_blend_fwd.launches = 0
+    fused_blend_bwd.launches = 0
+    fixed_on, fixed_steps = timed_steps(tr, range(1, fixed_iterations + 1))
+    cfg.optimization.flowmatching.apply_flowmatching = False
+    fixed_off, off_steps = timed_steps(
+        tr, range(fixed_iterations + 1, 2 * fixed_iterations + 1))
+    fk1, fk2 = fused_blend_fwd.launches, fused_blend_bwd.launches
+    check_metrics(fixed_steps + off_steps, "fixed")
+    if fk1 != 6 * 2 * fixed_iterations or fk2 != fk1:
+        raise AssertionError(f"fixed: K1 {fk1}, K2 {fk2} launches over "
+                             f"{2 * fixed_iterations} steps (6 each)")
+    report.update(
+        fixed_ms_per_step=statistics.median(fixed_on[2:]),
+        fixed_step_ms=fixed_on,
+        fixed_ms_per_step_flow_off=statistics.median(fixed_off[2:]),
+        fixed_step_ms_flow_off=fixed_off,
+        fixed_k1_launches=fk1, fixed_k2_launches=fk2,
+        fixed_metrics={k: float(v) for k, v in fixed_steps[-1].items()})
+    log(report)
+    del tr, scene
+    gc.collect()
+    return k1_launches + fk1, k2_launches + fk2, k1, k2
+
+
 def dense_serve_cfg(model, view, scene, width):
     """gather + use_pallas for serving, its capacities bucketed from the
     three renders' demand (view, sun, Nadir), so that nothing clips.
@@ -2206,7 +2536,7 @@ def main() -> int:
     phase_k1_small(device)
     k2_small_err = phase_k2_small(device)
     per_render, serve_launches = phase_serve(device)
-    scene, scene_s, heightfield = train_scene(device)
+    scene, scene_s, arrays = train_scene(device)
     k2_at, k1_at, k1_launches, k2_launches, captured, tr = phase_train(
         device, scene, scene_s)
     k2 = k2_at["main"]
@@ -2219,10 +2549,14 @@ def main() -> int:
     k4_at, k4f_at, k4b_at, k4f_launches, k4b_launches = phase_train_fast(
         device, scene)
     gc.collect()
-    recipe_k1, recipe_k2 = phase_recipe(device, scene, heightfield)
+    recipe_k1, recipe_k2 = phase_recipe(device, scene, arrays.heightfield)
     gc.collect()
     cli_k1, cli_k2 = phase_cli(device, scene)
     del scene
+    gc.collect()
+    eplus_k1, eplus_k2, eplus_k1_rep, eplus_k2_rep = phase_eogsplus(device,
+                                                                   arrays)
+    del arrays
     gc.collect()
     k4_serve_launches, k4_serve, k4_serve_at = phase_serve_dense(device)
     phase_safe_small(device)
@@ -2245,20 +2579,24 @@ def main() -> int:
     log({"kernels": [
         entry("fused_blend_fwd (K1)", "fused_blend_fwd.cu",
               "fused_raster.py:532", serve_launches + k1_launches
-              + recipe_k1 + cli_k1, view,
+              + recipe_k1 + cli_k1 + eplus_k1, view,
               max_abs_err=max(max(r["max_abs_err_ch0_4"],
                                   r["max_abs_err_final_t"])
                               for r in (*per_render.values(),
-                                        *k1_at.values())),
+                                        *k1_at.values(), eplus_k1_rep)),
               n_contrib_mismatches=sum(r["n_contrib_mismatches"]
                                        for r in (*per_render.values(),
-                                                 *k1_at.values())),
+                                                 *k1_at.values(),
+                                                 eplus_k1_rep)),
               **per_step(k1_at)),
         entry("fused_blend_bwd (K2)", "fused_blend_bwd.cu",
-              "fused_raster.py:614", k2_launches + recipe_k2 + cli_k2, k2,
-              max_abs_err=max(r["max_abs_err"] for r in k2_at.values()),
+              "fused_raster.py:614", k2_launches + recipe_k2 + cli_k2
+              + eplus_k2, k2,
+              max_abs_err=max(r["max_abs_err"]
+                              for r in (*k2_at.values(), eplus_k2_rep)),
               max_row_rel_err=max(k2_small_err, *(r["max_row_rel_err"]
-                                                  for r in k2_at.values())),
+                                                  for r in (*k2_at.values(),
+                                                            eplus_k2_rep))),
               **per_step(k2_at)),
         entry("fused_blend_fwd_rows (K3 forward)", "fused_blend_fwd.cu",
               "fused_raster.py:236", k3_launches["k3_fwd"], k3_fwd,

@@ -9,10 +9,13 @@ Ported so far: every route of ``rasterize`` with its kernels (``fused``:
 K1/K2, ``csrc/fused_blend_{fwd,bwd}.cu``, and K3, their row-payload load;
 ``gather``/``sorted``: the plain dense blend or K4,
 ``csrc/blend_tiles_{fwd,bwd}.cu``); the serving path (sun resampling,
-shading, the Nadir DSM and its MAE); the single-modality training recipes
-(``train.Trainer``: three renders per step, the loss stack, Adam,
-densification, opacity resets, early stopping, hooks, reports, model saves
-and checkpoints); and the host-side surface: the CLI (``cli.py``),
+shading, the Nadir DSM and its MAE); every training recipe of
+``config.PRESETS``, among them the paper's ``eogsplus``, in every modality
+mode (``train.Trainer``: three renders per step and modality, the loss
+stack, flow matching, Adam, densification, opacity and colour resets, the
+flow bake, early stopping, hooks, reports, model saves and checkpoints;
+``rescalers.py``, ``pansharpen.py``, ``color_ops.py``); and the host-side
+surface: the CLI (``cli.py``),
 ``checkpoint.py``, ``render_artifacts.py``, ``video.py``, ``flow.py``,
 ``observability.py`` and the file formats of ``io/`` (TIFF, PNG and PLY
 in numpy, so neither imageio nor Pillow is needed). ROADMAP.md lists what

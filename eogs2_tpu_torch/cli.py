@@ -19,8 +19,9 @@ Not ported yet, and raising NotImplementedError naming the ROADMAP item:
 the ``tsdf`` and ``full-eval`` subcommands (Queue 1 item 10); the
 multi-device options ``--n-devices`` > 1, ``--raster-backend a2a``,
 ``--coordinator``/``--num-processes``/``--process-id`` and
-``--views-per-step`` > 1 (item 13); the presets ``eogsplus`` and
-``optical_flow`` (item 9, raised by ``Trainer.setup``).
+``--views-per-step`` > 1 (item 13). Every preset trains: ``eogsplus`` and
+``optical_flow`` (3PAN, flow matching) load the scene's PAN cameras, from
+``--images-pan`` (default ``<scene>/images``), as JAX's CLI does.
 ``--steps-per-dispatch`` other than 1 raises too: it batches steps into one
 TPU dispatch and has no counterpart here (ROADMAP "Deliberate
 differences"). One flag is the port's own: ``--max-tiles-per-gaussian``

@@ -7,11 +7,8 @@ and typed param groups (``arguments/__init__.py``); defaults mirror
 ``gs_config/train.yaml`` field for field, and the iteration gates keep the
 "iterstart_*/iterend_*" naming.
 
-The trainer of this package runs the single-modality (onlyMSI) recipes,
-``baseogs`` and ``learnwv``, with densification by clone/split, the opacity
-reset and early stopping; the fields of the other recipes (flow matching,
-PAN modes, colour reset) are kept so a config carries across, and the
-trainer raises where one asks for a part not yet ported.
+The trainer of this package runs every preset and every modality mode of
+``_apply_mode``.
 """
 
 from __future__ import annotations

@@ -14,16 +14,17 @@ images in memory, and :func:`write_scene` writes the directory
 (``affine_models.json``, ``images/*.tif`` through ``io/tiff.py``, the split
 files, the ground-truth heightfield). :func:`scene_from_arrays` turns the
 in-memory form into a ``SceneData`` through the same code path
-``scene.load_scene`` takes after reading files. Only the single-modality
-("msi") scene is built: the panchromatic companions of ``modality="ms"``
-arrive with the PAN modalities (ROADMAP Queue 1 item 9).
+``scene.load_scene`` takes after reading files. ``modality="ms"`` adds each
+view's panchromatic companion, the WV3 combination of its colours
+(:func:`with_pan`), written to ``images_pan/`` under the MS metadata
+``{"msi": [...], "pan": [...]}``.
 """
 
 from __future__ import annotations
 
 import json
 import os
-from typing import Dict, List, NamedTuple
+from typing import Dict, List, NamedTuple, Optional, Union
 
 import numpy as np
 
@@ -129,15 +130,33 @@ def sun_model_from_affine(A3x4, sun_dir):
     return sun_A, sun_b, s, myM
 
 
+# the WV3 spectral combination of the PAN companions: pan = w[3] * (rgb .
+# w[:3] + w[4])
+WV3_PAN = (0.438469, 1.1331377, -0.6794343, 1.0, 0.0016913427)
+
+
 class SyntheticScene(NamedTuple):
     """A synthetic scene in memory (what generate_scene writes)."""
 
-    metadatas: List[dict]  # affine_models.json: one dict per view
+    # affine_models.json: one dict per view, or {"msi": [...], "pan": [...]}
+    metadatas: Union[List[dict], Dict[str, List[dict]]]
     images: Dict[str, np.ndarray]  # file name -> [H,W,3] float32
     train_names: List[str]
     test_names: List[str]
     heightfield: np.ndarray  # [res,res] ground-truth altitude
     texture: np.ndarray  # [res,res,3]
+    images_pan: Optional[Dict[str, np.ndarray]] = None  # name -> [H,W] float32
+
+
+def with_pan(s: SyntheticScene) -> SyntheticScene:
+    """The scene in modality "ms": each view's panchromatic companion (the
+    WV3 combination of its colours) and the MS metadata, where the PAN and
+    the MSI camera of a view are the same camera."""
+    w = WV3_PAN
+    pan = {name: (w[3] * (img @ np.asarray(w[:3], np.float32) + w[4])
+                  ).astype(np.float32) for name, img in s.images.items()}
+    return s._replace(metadatas={"msi": s.metadatas, "pan": s.metadatas},
+                      images_pan=pan)
 
 
 def make_scene_arrays(
@@ -149,11 +168,13 @@ def make_scene_arrays(
     seed: int = 0,
     scale: float = 25.0,
     sun_el_az=(55.0, 120.0),
+    modality: str = "msi",
 ) -> SyntheticScene:
     """Build the scene in memory: the same metadata, images and ground
     truth as eogs2_tpu's generate_scene(out_dir, ...) writes for these
-    arguments (modality "msi"). The normalized world is [-1,1]^3 with `scale` meters per
-    unit (so the 0.13/m^3 density init yields ~0.13*8*scale^3 points)."""
+    arguments. The normalized world is [-1,1]^3 with `scale` meters per
+    unit (so the 0.13/m^3 density init yields ~0.13*8*scale^3 points);
+    modality "ms" adds the PAN companions (:func:`with_pan`)."""
     rng = np.random.RandomState(seed)
     alt_range = (-0.35, 0.35)
     z, tex = _heightfield(hf_res, n_buildings, rng, alt_range)
@@ -204,9 +225,10 @@ def make_scene_arrays(
     # synthetic perfectly-nadir virtual camera (to_affine.py:239-253)
     metadatas.append(metadata(
         "Nadir", make_affine((0.0, 0.0), width, height, alt_range), True))
-    return SyntheticScene(
+    s = SyntheticScene(
         metadatas=metadatas, images=images, train_names=train_names,
         test_names=test_names, heightfield=z, texture=tex)
+    return with_pan(s) if modality == "ms" else s
 
 
 def write_scene(s: SyntheticScene, out_dir: str) -> str:
@@ -214,6 +236,10 @@ def write_scene(s: SyntheticScene, out_dir: str) -> str:
     os.makedirs(os.path.join(out_dir, "images"), exist_ok=True)
     for name, img in s.images.items():
         write_tiff(os.path.join(out_dir, "images", name), img)
+    if s.images_pan is not None:
+        os.makedirs(os.path.join(out_dir, "images_pan"), exist_ok=True)
+        for name, img in s.images_pan.items():
+            write_tiff(os.path.join(out_dir, "images_pan", name), img)
     with open(os.path.join(out_dir, "affine_models.json"), "w") as f:
         json.dump(s.metadatas, f)
     with open(os.path.join(out_dir, "train.txt"), "w") as f:
@@ -238,24 +264,22 @@ def generate_scene(
     modality: str = "msi",
 ) -> str:
     """Write a reference-schema scene directory; returns its path (JAX's
-    generate_scene; modality "ms" is ROADMAP Queue 1 item 9)."""
-    if modality != "msi":
-        raise NotImplementedError(
-            f"modality {modality!r} (the PAN companions) is not ported yet "
-            f"(ROADMAP Queue 1 item 9)")
+    generate_scene)."""
     return write_scene(make_scene_arrays(
         n_views=n_views, width=width, height=height, hf_res=hf_res,
         n_buildings=n_buildings, seed=seed, scale=scale,
-        sun_el_az=sun_el_az), out_dir)
+        sun_el_az=sun_el_az, modality=modality), out_dir)
 
 
 def scene_from_arrays(s: SyntheticScene, device=None, **kw):
     """The SceneData that scene.load_scene would build from this scene
-    written to disk and read back with its images/; kw are build_scene's
-    remaining options."""
+    written to disk and read back with its images/ (and images_pan/); kw
+    are build_scene's remaining options (load_msi, load_pan, ...)."""
     from eogs2_tpu_torch.scene import build_scene
 
     images = {k: v.transpose(2, 0, 1) for k, v in s.images.items()}
-    return build_scene(s.metadatas, images, split=(s.train_names,
-                                                   s.test_names),
-                       device=device, **kw)
+    pan = (None if s.images_pan is None
+           else {k: v[None] for k, v in s.images_pan.items()})
+    return build_scene(s.metadatas, images, pan,
+                       split=(s.train_names, s.test_names), device=device,
+                       **kw)

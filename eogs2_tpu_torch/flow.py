@@ -12,8 +12,9 @@ gt -> render; the render (and gt) are sampled at grid + flow with border
 padding, align_corners=True.
 
 The render stage (``render_artifacts.render_sets``) uses the phase
-correlation and the warp; the Trainer's flow-matching phase, which uses
-the rest, is ROADMAP Queue 1 item 9.
+correlation and the warp; the training step's flow-matching phase uses
+estimate_flow, apply_flow_to_image and flow_accept, and the Trainer's
+flow bake phase_correlation_shift and adjust_affine.
 """
 
 from __future__ import annotations

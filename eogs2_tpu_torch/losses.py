@@ -12,10 +12,12 @@ Counterpart of ``eogs2_tpu/losses.py``; parity targets (the reference's
   * total variation on altitude                       (main_loss.py:40-53)
   * erank anti-needle regularizer                     (main_loss.py:21-37)
   * transient-material Gaussian NLL                   (train_pan.py:433-449)
+  * flow matching, PAN L2, pansharpened L2, PAN gradient L2
+                                                      (PAN_loss.py:20-31,
+                                                       pansharp_loss.py:7-23)
 
 Masked variants take a pixel-validity mask so padded canvases train
-correctly. The PAN losses arrive with the PAN modalities (ROADMAP Queue 1
-item 9).
+correctly.
 """
 
 from __future__ import annotations
@@ -114,6 +116,10 @@ def randomcam_loss(altitude_render, new_altitude_sample, rgb_render,
     return torch.where(any_occ, alt, 0.0), torch.where(any_occ, rgb, 0.0)
 
 
+def flowmatch_loss(flow):
+    return torch.abs(torch.mean(flow))
+
+
 def gaussian_nll_loss(pred, target, var, eps: float = 1e-6, mask=None):
     """torch.nn.functional.gaussian_nll_loss (full=False), masked:
     0.5 * (log(max(var, eps)) + (pred-target)^2 / max(var, eps))."""
@@ -128,3 +134,30 @@ def transient_nll_loss(image, gt_image, transient_mask, mask=None):
     betaprime = (torch.clamp(transient_mask, 0.0, 1.0) + 1e-3) ** 2
     var = torch.broadcast_to(betaprime[None], image.shape)
     return gaussian_nll_loss(image, gt_image, var, mask=mask)
+
+
+def pan_l2_loss(pan, gt_pan):
+    return torch.mean((pan - gt_pan) ** 2)
+
+
+def pansharp_loss(syn_image, gt_pan, gt_msi, method: str = "brovey"):
+    """L2 between a synthesized image and the pansharpened ground truth
+    (loss/pansharp_loss.py:7-23). The reference defines it but never
+    instantiates it (train_pan.py:300 pins L_pansharp = 0); a library
+    function, as in JAX. `syn_image` is at PAN resolution."""
+    from eogs2_tpu_torch.pansharpen import load_pansharp
+
+    sharp = load_pansharp(method)(img_pan=gt_pan, img_msi=gt_msi)
+    return torch.mean((syn_image - sharp) ** 2)
+
+
+def pan_gradient_loss(pan, gt_pan):
+    """L2 on central-difference gradients (PAN_loss.py:20-31)."""
+
+    def grads(x):
+        gy, gx = torch.gradient(x, dim=(-2, -1))
+        return gy, gx
+
+    gy1, gx1 = grads(pan)
+    gy2, gx2 = grads(gt_pan)
+    return torch.mean((gy1 - gy2) ** 2) + torch.mean((gx1 - gx2) ** 2)

@@ -9,9 +9,11 @@ the synthetic Nadir camera appended to test :305-328) and
 in memory; :func:`load_scene` reads them from a scene directory (TIFFs and
 PNGs through ``io/tiff.py`` and ``io/png.py``, which need neither imageio
 nor Pillow) and calls it, with the init points of ``<scene>/<name>.ply``
-when ``input_ply_name`` is given (dataset_MS_affine.py:116-121). Of the GT
-rescalers, the default ``clamper`` and ``identity`` are ported; the others
-arrive with the remaining recipes (ROADMAP Queue 1 item 9).
+when ``input_ply_name`` is given (dataset_MS_affine.py:116-121). The MS
+format's {"pan", "msi"} groups pair a PAN and an MSI view per index; in the
+single-modality list format, a run that loads no MSI (3PAN, onlyPAN,
+average) takes the same metadata as PAN cameras. The GT is normalized at
+load by any rescaler of ``rescalers.py``.
 """
 
 from __future__ import annotations
@@ -28,6 +30,7 @@ from eogs2_tpu_torch.io import read_with_library
 from eogs2_tpu_torch.io.ply import read_point_cloud
 from eogs2_tpu_torch.io.png import read_png
 from eogs2_tpu_torch.io.tiff import read_tiff
+from eogs2_tpu_torch.rescalers import load_rescaler
 
 
 @dataclasses.dataclass
@@ -118,16 +121,6 @@ def _load_image(images_dir: str, name: str, need_rescale: bool):
     return img.transpose(2, 0, 1)
 
 
-def _rescaler(name):
-    if name in ("clamper", None, ""):
-        return lambda x: np.clip(x, 0.0, 1.0)
-    if name == "identity":
-        return lambda x: x
-    raise NotImplementedError(
-        f"rescaler {name!r} is not ported yet (ROADMAP Queue 1 item 9); "
-        f"use 'clamper' or 'identity'")
-
-
 def build_scene(
     metadatas,
     images_msi: Optional[Dict[str, np.ndarray]] = None,
@@ -201,10 +194,12 @@ def build_scene(
     train_views[0].is_reference = True
 
     # GT normalization at load (utils/rescaler/rescaler.py:149-172)
-    rescale = _rescaler(rescaler_name)
-    for v in train_views + test_views:
-        if v.image is not None:
-            v.image = np.asarray(rescale(v.image), np.float32)
+    if rescaler_name and rescaler_name != "identity":
+        rescale = load_rescaler(rescaler_name,
+                                reference_image=train_views[0].image)
+        for v in train_views + test_views:
+            if v.image is not None:
+                v.image = np.asarray(rescale(v.image), np.float32)
 
     model = model_md["model"]
     if init_points is not None:

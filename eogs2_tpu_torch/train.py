@@ -1,4 +1,4 @@
-"""Training: the baseogs step and a lean Trainer.
+"""Training: the step over one or two modalities, and the Trainer.
 
 Counterpart of ``eogs2_tpu/train.py``; parity target ``train_pan.py:97-811``,
 the per-iteration recipe: main render -> sun-camera render resampled onto
@@ -19,9 +19,17 @@ densification statistics and pruning.
     ``scale_by_adam`` update, m_hat / (sqrt(v_hat) + eps); every leaf gets a
     gradient each step (zeros where the loss does not reach it), so every
     leaf's moments and step count advance as optax's do.
-  * The step takes its random draws as inputs (the background's uniform
-    [5] and the random camera's standard-normal [2]); the Trainer draws
-    them from its own ``torch.Generator``. JAX draws them from keys.
+  * The step renders one modality (MSI, or PAN through a ``pan_mode``:
+    3PAN's identity, onlyPAN's one channel, average) or two (the dual MS
+    ``fixed`` mode: the MSI and the PAN camera of one view), sums their
+    losses before one optimizer step and keeps the larger radii.
+  * The step takes its random draws as inputs, one row per modality (the
+    background's uniform [5] and the random camera's standard-normal [2]);
+    the Trainer draws them from its own ``torch.Generator``. JAX draws them
+    from keys.
+  * The flow-matching phase (the paper's internal camera refinement)
+    estimates the gt->render flow of the detached images, warps the render
+    and keeps the warp where the criteria accept it, on the device.
   * The densification statistic (viewspace-gradient norm) is the gradient
     of a zero NDC offset of the projected centres, as in JAX.
 
@@ -36,20 +44,22 @@ Queue 3), ``next_buckets`` and ``prewarm_bucket_ladder`` (compile-cache
 warmers), ``early_exit_auto``, ``steps_per_dispatch`` and the step's
 ``.chunk`` (lax.scan) path.
 
-The Trainer runs the rest of the single-modality recipe as JAX's does:
+The Trainer runs every recipe of ``config.PRESETS`` as JAX's does: the
+modality modes of ``config._apply_mode`` with pansharpening of the PAN GT,
 densification by clone/split with the size prune, the opacity reset with
 its Adam-moment surgery (``densify.py``; the split's draws come from the
-Trainer's generator), early stopping, the ``log_hook``, the ``eval_hook``
+Trainer's generator), the flow bake into the affines, the colour reset and
+``normalize_colors_before_saving`` (``color_ops.py``), early stopping, the
+``log_hook``, the ``eval_hook``
 every ``testing_interval`` (e.g. the Nadir DSM's MAE,
 ``pipeline.evaluate_dsm_mae``), ``training_report`` at
 ``big_testing_iterations``, ``calibrate_opacity_init``, model saves
 (``save_model``, at ``save_iterations``) and full checkpoints
 (``checkpoint.py``, at ``checkpoint_iterations``; ``restore`` resumes from
 one), in JAX's directory layout with a ``torch.save`` file where JAX
-writes an orbax directory. Still to port (ROADMAP Queue 1): flow matching,
-colour reset, ``normalize_colors_before_saving``, PAN modalities and
-pansharpening (item 9); the multi-device backends (item 13). The Trainer
-raises NotImplementedError when a config asks for one of them.
+writes an orbax directory. Still to port (ROADMAP Queue 1): the
+multi-device backends (item 13); the step raises NotImplementedError for
+them.
 """
 
 from __future__ import annotations
@@ -66,6 +76,9 @@ from eogs2_tpu_torch import losses as L
 from eogs2_tpu_torch.cameras import AffineCamera
 from eogs2_tpu_torch.checkpoint import (restore_checkpoint, save_checkpoint,
                                         state_to_tree)
+from eogs2_tpu_torch.color_ops import (apply_color_reset,
+                                       normalize_colors_before_saving,
+                                       shadow_reset_mask)
 from eogs2_tpu_torch.config import TrainConfig
 from eogs2_tpu_torch.densify import (apply_prune, densify_clone,
                                      densify_split, prune_mask,
@@ -73,12 +86,16 @@ from eogs2_tpu_torch.densify import (apply_prune, densify_clone,
                                      reset_densification_stats,
                                      reset_opacity_with_moments)
 from eogs2_tpu_torch.device import resolve_device
+from eogs2_tpu_torch.flow import (adjust_affine, apply_flow_to_image,
+                                  estimate_flow, flow_accept,
+                                  phase_correlation_shift)
 from eogs2_tpu_torch.io.ply import save_gaussians_ply
 from eogs2_tpu_torch.model import (GaussianModel, GaussianParams,
                                    add_densification_stats, init_from_points)
 from eogs2_tpu_torch.ops.projection import TILE
 from eogs2_tpu_torch.ops.resample import grid_sample
 from eogs2_tpu_torch.ops.sh import SH2RGB
+from eogs2_tpu_torch.pansharpen import load_pansharp
 from eogs2_tpu_torch.pipeline import evaluate_dsm_mae, render_view_full
 from eogs2_tpu_torch.rasterizer import RasterizeConfig, rasterize
 from eogs2_tpu_torch.scene import SceneData
@@ -250,18 +267,16 @@ def make_train_step(
     """The step for one Phase: step(model, shading, view_idx, bg_draw,
     shear_draw, gates) -> metrics (a dict of 0-d tensors, not synced).
 
-    One modality on one device: bg_draw [5] uniform in [0, 1) (used when
-    random_background), shear_draw [2] standard normal (the random camera's
-    draw), gates from make_gates. The step updates the model, the shading
-    parameters and both optimizers in place."""
+    ``modalities`` lists the cameras rendered per iteration: one entry for
+    the single-modality modes, the (msi, pan) pair of view ``view_idx`` for
+    the dual MS mode (get_list_cam parity, utils/camera_utils.py:22-31);
+    the losses of all entries are summed before the one optimizer step
+    (train_pan.py:268-469). bg_draw [M, 5] uniform in [0, 1) (used when
+    random_background) and shear_draw [M, 2] standard normal (the random
+    camera's draw), one row per modality (a single modality may pass [5]
+    and [2]); gates from make_gates. The step updates the model, the
+    shading parameters and both optimizers in place."""
     o = cfg.optimization
-    if len(modalities) != 1 or modalities[0][2] is not None:
-        raise NotImplementedError(
-            "the port trains one modality without PAN conversion so far; "
-            "the PAN and dual MS modalities are ROADMAP Queue 1 item 9")
-    if phase.enable_flowmatch:
-        raise NotImplementedError(
-            "flow matching is ROADMAP Queue 1 item 9 (eogs2_tpu/flow.py)")
     if getattr(o, "views_per_step", 1) > 1:
         raise NotImplementedError(
             "views_per_step > 1 is not ported (a TPU batching extension; "
@@ -271,159 +286,210 @@ def make_train_step(
             f"raster_backend={raster_backend!r}: the multi-device path is "
             f"ROADMAP Queue 1 item 13")
     cam_params = cfg.model.camera_params
+    fm = o.flowmatching
     # the trainer always renders the EOGS channel layout [rgb, alt, 1]
     raster_cfg = dataclasses.replace(raster_cfg, eogs_features=True)
-    _, consts, pan_mode, idx_off = modalities[0]
-    wn, hn = consts.native_wh
-    hp, wp = consts.images.shape[-2:]
-    uv_grid = native_uv_grid(wn, hn, wp, hp, device=consts.images.device)
 
-    def camera_loss(model, sp, m2d_off, view_idx, bg_draw, shear_draw, gates):
-        vi = view_idx + idx_off
-        affine = consts.affines[view_idx]
-        if phase.learn_pose:
-            affine = torch.cat(
-                [affine[:, :3], (affine[:, 3] + sp.last_row[vi, :3])[:, None]],
-                dim=1)
-        cam = AffineCamera(
-            affine=affine, sun_affine=consts.sun_affines[view_idx],
-            camera_to_sun=consts.cam2sun[view_idx],
-            altitude_bounds=consts.alt_bounds[view_idx],
-            centerofscene=consts.centerofscene, width=wn, height=hn)
+    def build_modality_loss(consts: SceneTensors, pan_mode, idx_off: int):
+        wn, hn = consts.native_wh
+        hp, wp = consts.images.shape[-2:]
+        uv_grid = native_uv_grid(wn, hn, wp, hp, device=consts.images.device)
 
-        if o.random_background:
-            bg = bg_draw.to(torch.float32).clone()
-        else:
-            bg = torch.full((5,), 1.0 if cfg.model.white_background else 0.0,
-                            device=affine.device)
-        if o.copy_background_firschan:
-            bg[1:3] = bg[0]
-        bg[3] = cam.altitude_bounds[0]
-        bg[4] = 0.0
+        def camera_loss(model, sp, m2d_off, view_idx, bg_draw, shear_draw,
+                        gates):
+            vi = view_idx + idx_off
+            affine = consts.affines[view_idx]
+            if phase.learn_pose:
+                affine = torch.cat(
+                    [affine[:, :3],
+                     (affine[:, 3] + sp.last_row[vi, :3])[:, None]], dim=1)
+            cam = AffineCamera(
+                affine=affine, sun_affine=consts.sun_affines[view_idx],
+                camera_to_sun=consts.cam2sun[view_idx],
+                altitude_bounds=consts.alt_bounds[view_idx],
+                centerofscene=consts.centerofscene, width=wn, height=hn)
 
-        # ---- main render (at the padded canvas) ----
-        xyz = model.xyz
-        rgb = SH2RGB(model.features_dc[:, 0, :])
-        alt = cam.ecef_to_uva(xyz)[:, 2:3]
-        ones = torch.ones_like(alt)
-        scaling = torch.exp(model.scaling)
-        opacity = torch.sigmoid(model.opacity[:, 0])
+            if o.random_background:
+                bg = bg_draw.to(torch.float32).clone()
+            else:
+                bg = torch.full((5,),
+                                1.0 if cfg.model.white_background else 0.0,
+                                device=affine.device)
+            if o.copy_background_firschan:
+                bg[1:3] = bg[0]
+            bg[3] = cam.altitude_bounds[0]
+            bg[4] = 0.0
 
-        def raster(feats, aff, w, h, off=None):
-            return rasterize(xyz, scaling, model.rotation, opacity, feats,
-                             aff, bg, w, h, raster_cfg, alive=model.alive,
-                             mean2d_ndc_offset=off)
+            # ---- main render (at the padded canvas) ----
+            xyz = model.xyz
+            rgb = SH2RGB(model.features_dc[:, 0, :])
+            alt = cam.ecef_to_uva(xyz)[:, 2:3]
+            ones = torch.ones_like(alt)
+            scaling = torch.exp(model.scaling)
+            opacity = torch.sigmoid(model.opacity[:, 0])
 
-        out = raster(torch.cat([rgb, alt, ones], dim=-1),
-                     cam.resize_canvas(wp, hp).affine, wp, hp, m2d_off)
-        raw_render = out.image[:3]
-        altitude = out.image[3]
-        acc_opacity = out.image[4]
-        rendered_uva = torch.cat([uv_grid, altitude[..., None]], dim=-1)
+            def raster(feats, aff, w, h, off=None):
+                return rasterize(xyz, scaling, model.rotation, opacity,
+                                 feats, aff, bg, w, h, raster_cfg,
+                                 alive=model.alive, mean2d_ndc_offset=off)
 
-        def render_virtual(vcam, cam2virt, vw, vh):
-            vfeats = torch.cat([rgb, vcam.ecef_to_uva(xyz)[:, 2:3], ones],
-                               dim=-1)
-            vout = raster(vfeats, vcam.affine, vw, vh)
-            v_uv = torch.einsum("ij,hwj->hwi", cam2virt, rendered_uva)[..., :2]
-            samp = grid_sample(vout.image[:4], v_uv, align_corners=True)
-            alt_s = torch.where(torch.any(torch.abs(v_uv) > 1.0, dim=-1),
-                                -100.0, samp[3])
-            return samp[:3], alt_s, v_uv
+            out = raster(torch.cat([rgb, alt, ones], dim=-1),
+                         cam.resize_canvas(wp, hp).affine, wp, hp, m2d_off)
+            raw_render = out.image[:3]
+            altitude = out.image[3]
+            acc_opacity = out.image[4]
+            rendered_uva = torch.cat([uv_grid, altitude[..., None]], dim=-1)
 
-        terms = {}
-        sun_altitude_diff = None
-        if phase.enable_sun:
-            sun_cam, cam2sun = cam.sun_camera(f=2)
-            sw = ((sun_cam.width + TILE - 1) // TILE) * TILE
-            sh = ((sun_cam.height + TILE - 1) // TILE) * TILE
-            sun_rgb, sun_alt, sun_uv = render_virtual(
-                sun_cam.resize_canvas(sw, sh), cam2sun, sw, sh)
-            sun_altitude_diff = altitude - sun_alt
-            alt_t, rgb_t = L.suncamera_loss(raw_render, sun_rgb,
-                                            sun_altitude_diff, sun_uv)
-            terms["L_sun_altitude_resample"] = gates["sun_resample"] * alt_t
-            terms["L_sun_rgb_resample"] = gates["sun_resample"] * rgb_t
+            def render_virtual(vcam, cam2virt, vw, vh):
+                vfeats = torch.cat([rgb, vcam.ecef_to_uva(xyz)[:, 2:3], ones],
+                                   dim=-1)
+                vout = raster(vfeats, vcam.affine, vw, vh)
+                v_uv = torch.einsum("ij,hwj->hwi", cam2virt,
+                                    rendered_uva)[..., :2]
+                samp = grid_sample(vout.image[:4], v_uv, align_corners=True)
+                alt_s = torch.where(torch.any(torch.abs(v_uv) > 1.0, dim=-1),
+                                    -100.0, samp[3])
+                return samp[:3], alt_s, v_uv
 
-        # ---- shading pipeline ----
-        shaded_out = render_pipeline(
-            raw_render, sun_altitude_diff, sp.cc_weight[vi], sp.cc_bias[vi],
-            sp.inshadow[vi], use_cc=cam_params.use_cc,
-            use_shadow=cam_params.use_shadow, exposure=sp.exposure[vi],
-            use_exposure=cam_params.use_exposure, pan_mode=pan_mode,
-            pan_weight=sp.msi_to_pan_weight[vi],
-            pan_bias=sp.msi_to_pan_bias[vi],
-            weird_pan_setup=cfg.model.weird_pan_setup)
-        image = shaded_out["final"]
-        gt_image = consts.images[view_idx]
-        valid = consts.image_valid[view_idx]
+            terms = {}
+            sun_altitude_diff = None
+            if phase.enable_sun:
+                sun_cam, cam2sun = cam.sun_camera(f=2)
+                sw = ((sun_cam.width + TILE - 1) // TILE) * TILE
+                sh = ((sun_cam.height + TILE - 1) // TILE) * TILE
+                sun_rgb, sun_alt, sun_uv = render_virtual(
+                    sun_cam.resize_canvas(sw, sh), cam2sun, sw, sh)
+                sun_altitude_diff = altitude - sun_alt
+                alt_t, rgb_t = L.suncamera_loss(raw_render, sun_rgb,
+                                                sun_altitude_diff, sun_uv)
+                terms["L_sun_altitude_resample"] = gates["sun_resample"] * alt_t
+                terms["L_sun_rgb_resample"] = gates["sun_resample"] * rgb_t
 
-        # ---- random virtual camera consistency ----
-        if phase.enable_random:
-            new_cam, cam2new = cam.random_camera(shear_draw,
-                                                 o.virtual_camera_extent)
-            new_rgb, new_alt, new_uv = render_virtual(
-                new_cam.resize_canvas(wp, hp), cam2new, wp, hp)
-            alt_t, rgb_t = L.randomcam_loss(altitude, new_alt, raw_render,
-                                            new_rgb, new_uv)
-            terms["L_new_altitude_resample"] = gates["new_resample"] * alt_t
-            terms["L_new_rgb_resample"] = gates["new_resample"] * rgb_t
+            # ---- shading pipeline ----
+            shaded_out = render_pipeline(
+                raw_render, sun_altitude_diff, sp.cc_weight[vi],
+                sp.cc_bias[vi], sp.inshadow[vi], use_cc=cam_params.use_cc,
+                use_shadow=cam_params.use_shadow, exposure=sp.exposure[vi],
+                use_exposure=cam_params.use_exposure, pan_mode=pan_mode,
+                pan_weight=sp.msi_to_pan_weight[vi],
+                pan_bias=sp.msi_to_pan_bias[vi],
+                weird_pan_setup=cfg.model.weird_pan_setup)
+            image = shaded_out["final"]
+            gt_image = consts.images[view_idx]
+            valid = consts.image_valid[view_idx]
 
-        # ---- scalar regularizers ----
-        init_count = gates["init_count"]
-        terms["L_opacity"] = gates["opacity"] * L.opacity_loss(
-            opacity, model.alive, init_count)
-        terms["L_opacity_radii"] = gates["opacity_radii"] * \
-            L.radii_opacity_loss(opacity, out.radii, init_count)
-        terms["L_erank"] = gates["erank"] * L.erank_loss(scaling, model.alive)
-        terms["L_TV_altitude"] = gates["tv"] * L.tv_altitude_loss(altitude)
-        terms["L_accumulated_opacity"] = gates["acc_opacity"] * \
-            L.accumulated_opacity_loss(acc_opacity, valid[0])
-        if shaded_out["shadowmap"] is not None:
-            terms["L_translucentshadows"] = L.translucent_shadows_loss(
-                shaded_out["shadowmap"], valid[0])
-        else:
-            terms["L_translucentshadows"] = image.new_zeros(())
-        terms["L_nll"] = gates["nll"] * L.transient_nll_loss(
-            image, gt_image, sp.transient_mask[vi], mask=valid)
-        photometric, ll1 = L.photometric_loss(image, gt_image,
-                                              o.lambda_dssim, mask=valid)
-        terms["Lphotometric"] = photometric
+            # ---- flow matching (internal camera refinement) ----
+            # perform_flow_matching parity (flow_matching.py:293-329): the
+            # gt->render flow of the detached images, the render warped into
+            # the gt frame, kept when the criteria accept it and the gate is
+            # open; all on the device, nothing synced
+            flow_mag = image.new_zeros(())
+            if phase.enable_flowmatch:
+                fdx, fdy = estimate_flow(gt_image.detach(), image.detach(),
+                                         fm.perform_cst_displacement)
+                flow_mag = 0.5 * (torch.mean(torch.abs(fdx))
+                                  + torch.mean(torch.abs(fdy)))
+                warped = apply_flow_to_image(image, fdx, fdy)
+                accept = flow_accept(fm.criteria, flow_mag, image, warped,
+                                     gt_image, valid, fm.max_value_flow)
+                accept = accept & (gates["flowmatch"] > 0.5)
+                image = torch.where(accept, warped, image)
 
-        zero = image.new_zeros(())
-        total = (
-            o.w_L_photometric * terms["Lphotometric"]
-            + o.w_L_opacity * terms["L_opacity"]
-            + o.w_L_opacity_radii * terms["L_opacity_radii"]
-            + o.w_L_sun_altitude_resample * terms.get("L_sun_altitude_resample", zero)
-            + o.w_L_sun_rgb_resample * terms.get("L_sun_rgb_resample", zero)
-            + o.w_L_new_altitude_resample * terms.get("L_new_altitude_resample", zero)
-            + o.w_L_new_rgb_resample * terms.get("L_new_rgb_resample", zero)
-            + o.w_L_TV_altitude * terms["L_TV_altitude"]
-            + o.w_L_erank * terms["L_erank"]
-            + o.w_L_translucentshadows * terms["L_translucentshadows"]
-            + o.w_L_accumulated_opacity * terms["L_accumulated_opacity"]
-            + getattr(o, "w_L_nll", 0.0) * terms["L_nll"]
-        )
-        with torch.no_grad():
-            metrics = {
-                "loss": total.detach(),
-                "L1": ll1.detach(),
-                "photometric": photometric.detach(),
-                "psnr": -10.0 * torch.log10(
-                    L.masked_mean((image - gt_image) ** 2, valid) + 1e-12),
-                "num_pairs": out.num_pairs,
-                "max_tile": out.max_tile_count,
-                "max_tiles_per_gaussian": out.max_tiles_per_gaussian_seen,
-                "sat_frac": L.masked_mean((out.final_t < 1e-2).float(),
-                                          valid[0]),
-                "clipped_pairs": (out.clipped_pairs
-                                  if out.clipped_pairs is not None
-                                  else torch.zeros((), dtype=torch.int64,
-                                                   device=image.device)),
-                **{k: v.detach() for k, v in terms.items()},
-            }
-        return total, metrics, out.radii
+            # ---- random virtual camera consistency ----
+            if phase.enable_random:
+                new_cam, cam2new = cam.random_camera(shear_draw,
+                                                     o.virtual_camera_extent)
+                new_rgb, new_alt, new_uv = render_virtual(
+                    new_cam.resize_canvas(wp, hp), cam2new, wp, hp)
+                alt_t, rgb_t = L.randomcam_loss(altitude, new_alt, raw_render,
+                                                new_rgb, new_uv)
+                terms["L_new_altitude_resample"] = gates["new_resample"] * alt_t
+                terms["L_new_rgb_resample"] = gates["new_resample"] * rgb_t
+
+            # ---- scalar regularizers ----
+            init_count = gates["init_count"]
+            terms["L_opacity"] = gates["opacity"] * L.opacity_loss(
+                opacity, model.alive, init_count)
+            terms["L_opacity_radii"] = gates["opacity_radii"] * \
+                L.radii_opacity_loss(opacity, out.radii, init_count)
+            terms["L_erank"] = gates["erank"] * L.erank_loss(scaling,
+                                                             model.alive)
+            terms["L_TV_altitude"] = gates["tv"] * L.tv_altitude_loss(altitude)
+            terms["L_accumulated_opacity"] = gates["acc_opacity"] * \
+                L.accumulated_opacity_loss(acc_opacity, valid[0])
+            if shaded_out["shadowmap"] is not None:
+                terms["L_translucentshadows"] = L.translucent_shadows_loss(
+                    shaded_out["shadowmap"], valid[0])
+            else:
+                terms["L_translucentshadows"] = image.new_zeros(())
+            terms["L_nll"] = gates["nll"] * L.transient_nll_loss(
+                image, gt_image, sp.transient_mask[vi], mask=valid)
+            photometric, ll1 = L.photometric_loss(image, gt_image,
+                                                  o.lambda_dssim, mask=valid)
+            terms["Lphotometric"] = photometric
+
+            zero = image.new_zeros(())
+            total = (
+                o.w_L_photometric * terms["Lphotometric"]
+                + o.w_L_opacity * terms["L_opacity"]
+                + o.w_L_opacity_radii * terms["L_opacity_radii"]
+                + o.w_L_sun_altitude_resample
+                * terms.get("L_sun_altitude_resample", zero)
+                + o.w_L_sun_rgb_resample
+                * terms.get("L_sun_rgb_resample", zero)
+                + o.w_L_new_altitude_resample
+                * terms.get("L_new_altitude_resample", zero)
+                + o.w_L_new_rgb_resample
+                * terms.get("L_new_rgb_resample", zero)
+                + o.w_L_TV_altitude * terms["L_TV_altitude"]
+                + o.w_L_erank * terms["L_erank"]
+                + o.w_L_translucentshadows * terms["L_translucentshadows"]
+                + o.w_L_accumulated_opacity * terms["L_accumulated_opacity"]
+                + getattr(o, "w_L_nll", 0.0) * terms["L_nll"]
+            )
+            with torch.no_grad():
+                metrics = {
+                    "loss": total.detach(),
+                    "flow_mag": flow_mag.detach(),
+                    "L1": ll1.detach(),
+                    "photometric": photometric.detach(),
+                    "psnr": -10.0 * torch.log10(
+                        L.masked_mean((image - gt_image) ** 2, valid)
+                        + 1e-12),
+                    "num_pairs": out.num_pairs,
+                    "max_tile": out.max_tile_count,
+                    "max_tiles_per_gaussian": out.max_tiles_per_gaussian_seen,
+                    "sat_frac": L.masked_mean(
+                        (out.final_t < 1e-2).float(), valid[0]),
+                    "clipped_pairs": (
+                        out.clipped_pairs if out.clipped_pairs is not None
+                        else torch.zeros((), dtype=torch.int64,
+                                         device=image.device)),
+                    **{k: v.detach() for k, v in terms.items()},
+                }
+            return total, metrics, out.radii
+
+        return camera_loss
+
+    mod_losses = [(name, build_modality_loss(consts, pan_mode, idx_off))
+                  for (name, consts, pan_mode, idx_off) in modalities]
+    n_mod = len(mod_losses)
+
+    def loss_fn(model, sp, m2d_off, view_idx, bg_draws, shear_draws, gates):
+        total, metrics, radii = None, {}, None
+        for (name, closs), bg, shear in zip(mod_losses, bg_draws,
+                                            shear_draws):
+            t, m, r = closs(model, sp, m2d_off, view_idx, bg, shear, gates)
+            total = t if total is None else total + t
+            prefix = "" if n_mod == 1 else f"{name}_"
+            metrics.update({prefix + k: v for k, v in m.items()})
+            radii = r if radii is None else torch.maximum(radii, r)
+        if n_mod > 1:
+            metrics["loss"] = total.detach()
+            for k in ("photometric", "psnr", "L1"):
+                metrics[k] = sum(metrics[f"{n}_{k}"]
+                                 for n, _ in mod_losses) / n_mod
+        return total, metrics, radii
 
     def step(model: GaussianModel, shading: CameraShadingParams,
              view_idx: int, bg_draw, shear_draw, gates):
@@ -432,8 +498,9 @@ def make_train_step(
                               device=model.xyz.device, requires_grad=True)
         gauss_opt.zero_grad(set_to_none=True)
         cam_opt.zero_grad(set_to_none=True)
-        total, metrics, radii = camera_loss(model, shading, m2d_off, view_idx,
-                                            bg_draw, shear_draw, gates)
+        total, metrics, radii = loss_fn(
+            model, shading, m2d_off, view_idx, bg_draw.reshape(n_mod, 5),
+            shear_draw.reshape(n_mod, 2), gates)
         total.backward()
         # every leaf steps, as in optax (a leaf the loss does not reach
         # gets a zero gradient, so its moments and step count advance)
@@ -468,15 +535,18 @@ def make_train_step(
     return step
 
 
-_UNPORTED = "is not ported yet (ROADMAP Queue 1 item {})"
+# the MSI -> PAN conversions of shading.msi_to_pan
+PAN_MODES = ("fixed", "identity", "average", "only_one_channel", "learned",
+             "fixedandtranslate")
 
 
 @dataclasses.dataclass
 class Trainer:
-    """Host-side orchestration for one modality on one device: camera
-    sampling, phase scheduling, the step, densify/prune/reset cadence,
-    metrics averaged every ``tb_log_interval`` iterations, early stopping,
-    the hooks and, on the dense modes, the capacity grow every 50.
+    """Host-side orchestration on one device: camera sampling, phase
+    scheduling, the step over the modalities, densify/prune/reset cadence,
+    the flow bake and the colour reset, metrics averaged every
+    ``tb_log_interval`` iterations, early stopping, the hooks and, on the
+    dense modes, the capacity grow every 50.
 
     ``Trainer(cfg, scene, raster_cfg).setup().train(n)``; ``device=None``
     means CUDA (raises without it), ``device="cpu"`` runs the plain
@@ -504,19 +574,33 @@ class Trainer:
         cfg = self.cfg
         dev = resolve_device(self.device)
         self.device = dev
-        if cfg.optimization.apply_pansharp:
-            raise NotImplementedError("pansharpening " + _UNPORTED.format(9))
+        # group the views by modality (an MS scene pairs msi and pan per
+        # view index)
         msi = [v for v in self.scene.train_views if v.image_type == "msi"]
         pan = [v for v in self.scene.train_views if v.image_type == "pan"]
+        # one-time pansharpening of the PAN ground truth
+        # (train_pan.py:338-345: gt <- pansharp(pan, msi))
+        if cfg.optimization.apply_pansharp and cfg.model.load_pan and pan:
+            method = load_pansharp(cfg.optimization.pansharp_method)
+            msi_by_name = {v.name: v for v in msi}
+            for pv in pan:
+                mv = msi_by_name.get(pv.name)
+                if mv is not None and pv.image is not None \
+                        and mv.image is not None:
+                    pv.image = method(pv.image, mv.image).numpy()
         modal = ([("msi", msi)] if cfg.model.load_msi and msi else []) + \
             ([("pan", pan)] if cfg.model.load_pan and pan else [])
-        if len(modal) != 1 or modal[0][0] != "msi":
-            raise NotImplementedError(
-                "the PAN and dual MS modalities " + _UNPORTED.format(9)
-                + "; the port trains the onlyMSI mode")
+        if not modal:
+            raise ValueError("no views selected by load_msi/load_pan")
+        if len(modal) == 2 and len(msi) != len(pan):
+            raise ValueError("unpaired MS views")
         self.modal_views = modal
-        views = modal[0][1]
-        self.consts = build_scene_tensors_from_views(views, device=dev)
+        self.consts_by_modality = {
+            name: build_scene_tensors_from_views(
+                views, repeat_gt=cfg.model.repeat_gt and name == "pan",
+                device=dev)
+            for name, views in modal}
+        self.consts = self.consts_by_modality[modal[0][0]]
         n_init = len(self.scene.init_xyz)
         capacity = int(n_init * cfg.model.capacity_headroom)
         capacity = ((capacity + 127) // 128) * 128
@@ -525,11 +609,31 @@ class Trainer:
             sh_degree=cfg.model.sh_degree,
             opacity_init_value=cfg.model.opacity_init_value, device=dev)
         self.init_count = n_init
+        # shading rows: one per view, or one per view and modality without
+        # share_color_correction (each modality at its idx_off)
+        num_views = len(modal[0][1])
+        self._share_cc = cfg.model.share_color_correction
+        num_shading = num_views * (1 if self._share_cc or len(modal) == 1
+                                   else len(modal))
         transient_hw = (tuple(self.consts.images.shape[-2:])
                         if cfg.model.use_transient else None)
         self.shading = init_shading_params(
-            len(views), transient_hw=transient_hw,
+            num_shading, transient_hw=transient_hw,
             transient_init=cfg.model.transient_init_value, device=dev)
+        # the PAN conversion applies to the pan cameras only; in the
+        # single-modality modes every view has the same type
+        self.pan_mode = None
+        if cfg.model.load_pan and any(v.image_type == "pan"
+                                      for v in self.scene.train_views):
+            if cfg.model.msi_to_pan_name not in PAN_MODES:
+                raise ValueError(f"unknown msi_to_pan_name "
+                                 f"{cfg.model.msi_to_pan_name!r}")
+            self.pan_mode = cfg.model.msi_to_pan_name
+        if self.pan_mode == "fixedandtranslate":
+            # the residual starts at zero, so the output is the fixed WV3
+            # path's (transf_msi_to_pan.py:134-178, shading.msi_to_pan)
+            self.shading.msi_to_pan_weight.zero_()
+            self.shading.msi_to_pan_bias.zero_()
         self.gauss_opt = gaussian_optimizer(self.model, cfg,
                                             self.scene.cameras_extent)
         self.cam_opt = camera_optimizer(self.shading, cfg)
@@ -559,34 +663,35 @@ class Trainer:
         rc = self.raster_cfg
         if rc.binning_mode == "fused":
             return  # the fused route reads neither capacity
-        want = rc.bucketed(float(metrics["max_tile"]) / 0.95,
-                           float(metrics["max_tiles_per_gaussian"]))
+
+        def seen(key):  # the largest over the modalities' main renders
+            keys = ([key] if key in metrics
+                    else [f"{n}_{key}" for n, _ in self.modal_views])
+            return max(float(metrics[k]) for k in keys)
+
+        want = rc.bucketed(seen("max_tile") / 0.95,
+                           seen("max_tiles_per_gaussian"))
         self.set_raster_cfg(dataclasses.replace(
             rc, tile_capacity=max(rc.tile_capacity, want.tile_capacity),
             max_tiles_per_gaussian=max(rc.max_tiles_per_gaussian,
                                        want.max_tiles_per_gaussian)))
 
+    def _modalities(self):
+        """make_train_step's modalities: (name, SceneTensors, pan_mode,
+        shading row offset) per modality."""
+        num_views = len(self.modal_views[0][1])
+        return tuple(
+            (name, self.consts_by_modality[name],
+             self.pan_mode if name == "pan" else None,
+             0 if (self._share_cc or i == 0) else i * num_views)
+            for i, (name, _) in enumerate(self.modal_views))
+
     def _get_step(self, phase: Phase):
         if phase not in self._steps:
             self._steps[phase] = make_train_step(
-                (("msi", self.consts, None, 0),), self.cfg, self.raster_cfg,
-                phase, self.gauss_opt, self.cam_opt)
+                self._modalities(), self.cfg, self.raster_cfg, phase,
+                self.gauss_opt, self.cam_opt)
         return self._steps[phase]
-
-    def _check_supported(self, iters: int):
-        """Raise before the first step if the run would reach a part of the
-        recipe that is not ported yet."""
-        cfg, o = self.cfg, self.cfg.optimization
-        todo = []
-        if o.itr_apply_flowmatching_to_affine <= iters:
-            todo.append(("baking flow into the affines", 9))
-        if o.color_reset_iterations <= iters:
-            todo.append(("the colour reset", 9))
-        if o.normalize_colors_before_saving:
-            todo.append(("normalize_colors_before_saving", 9))
-        if todo:
-            what, item = todo[0]
-            raise NotImplementedError(f"{what} " + _UNPORTED.format(item))
 
     def _maintenance(self, iteration: int):
         """Pruning / densification / opacity reset (train_pan.py:672-736),
@@ -636,6 +741,63 @@ class Trainer:
             ("iteration", "selected", "alive_before", "cloned", "split",
              "alive_densified", "alive_pruned"), [iteration] + counts)))
 
+    def apply_flowmatching_to_affine(self):
+        """Bake each train view's mean gt->render flow into its camera
+        affine (adjust_affine_from_flow, flow_matching_toaffine.py:28-92):
+        render_view_full of the view, the phase-correlation shift of the GT
+        against the render, adjust_affine; the steps are rebuilt with the
+        new affines. The first modality's views, whose SceneTensors the
+        steps read."""
+        name, views = self.modal_views[0]
+        consts = self.consts_by_modality[name]
+        wn, hn = consts.native_wh
+        new_affines = []
+        for vi, view in enumerate(views):
+            cam = view.camera.replace(affine=consts.affines[vi])
+            out = render_view_full(
+                self.model, cam, self.raster_cfg, shading=self.shading,
+                view_idx=vi, with_sun=cam.has_sun, pan_mode=self.pan_mode)
+            gt = view.image
+            if gt.shape[0] == 1 and self.cfg.model.repeat_gt:
+                gt = np.repeat(gt, 3, axis=0)
+            final = out["final"][: gt.shape[0]]
+            dx, dy = phase_correlation_shift(
+                torch.from_numpy(gt).to(self.device),
+                torch.from_numpy(final).to(self.device))
+            new_affines.append(adjust_affine(consts.affines[vi], wn, hn,
+                                             float(dx), float(dy)))
+        consts = dataclasses.replace(consts, affines=torch.stack(new_affines))
+        self.consts_by_modality[name] = consts
+        self.consts = self.consts_by_modality[self.modal_views[0][0]]
+        self._steps = {}  # the steps hold the affines they were built with
+
+    def color_reset(self):
+        """Reset the Gaussians that lie in shadow in every train view
+        (color_reset_op.py:41-88): each view's shadow map from
+        render_view_full with its sun, min-pooled and sampled at the
+        Gaussians' projected UV (color_ops.py); colour, opacity, scale and
+        their Adam moments reset in place."""
+        shadowmaps, uvs = [], []
+        for (_, views), (_, _, pan_mode, idx_off) in zip(self.modal_views,
+                                                         self._modalities()):
+            for vi, view in enumerate(views):
+                if not view.camera.has_sun:
+                    continue
+                out = render_view_full(
+                    self.model, view.camera, self.raster_cfg,
+                    shading=self.shading, view_idx=vi + idx_off,
+                    with_sun=True, pan_mode=pan_mode)
+                if out["shadowmap"] is None:
+                    continue
+                shadowmaps.append(torch.from_numpy(out["shadowmap"]))
+                with torch.no_grad():
+                    uvs.append(view.camera.ecef_to_uva(self.model.xyz)[:, :2])
+        if not shadowmaps:
+            return
+        mask = shadow_reset_mask(torch.stack(shadowmaps).to(self.device),
+                                 torch.stack(uvs))
+        apply_color_reset(self.model, self.gauss_opt, mask)
+
     def train_step(self, iteration: int) -> Dict[str, torch.Tensor]:
         """One iteration: pick a view (a fresh permutation of the views each
         epoch, from np.random.RandomState(seed) as JAX does), run the step of
@@ -648,11 +810,11 @@ class Trainer:
         view_idx = int(self._view_stack.pop())
         step = self._get_step(phase_for_iteration(self.cfg, iteration))
         gates = make_gates(self.cfg, iteration, self.init_count)
-        # the step's random inputs: the background's uniform [5], the
-        # random camera's standard-normal shear [2]
-        g, dev = self.generator, self.device
-        bg_draw = torch.rand(5, generator=g, device=dev)
-        shear_draw = torch.randn(2, generator=g, device=dev)
+        # the step's random inputs, one row per modality: the background's
+        # uniform [5], the random camera's standard-normal shear [2]
+        g, dev, m = self.generator, self.device, len(self.modal_views)
+        bg_draw = torch.rand(m, 5, generator=g, device=dev)
+        shear_draw = torch.randn(m, 2, generator=g, device=dev)
         metrics = step(self.model, self.shading, view_idx, bg_draw,
                        shear_draw, gates)
         self.step += 1
@@ -671,7 +833,6 @@ class Trainer:
         runs 1..n again, as JAX's does."""
         o, log = self.cfg.optimization, self.cfg.logging
         iters = max_iterations or o.iterations
-        self._check_supported(iters)
         # early stopping (callback_utils.py:1-44): patience counts logged
         # intervals, a zero metric is skipped
         es = o.early_stopping
@@ -683,6 +844,12 @@ class Trainer:
             interval.append(self.train_step(iteration))
             if iteration % 50 == 0:
                 self._grow_capacities(interval[-1])
+            if iteration == o.itr_apply_flowmatching_to_affine:
+                self.apply_flowmatching_to_affine()
+                print("baked flow-matching shifts into camera affines")
+            if iteration == o.color_reset_iterations:
+                self.color_reset()
+                print("color reset applied")
             if iteration % log.tb_log_interval == 0:
                 m = mean_metrics(interval)
                 m["iteration"] = iteration
@@ -720,6 +887,10 @@ class Trainer:
             if iteration in self.cfg.save_iterations:
                 print(f"[ITER {iteration}] saving gaussians", flush=True)
                 self.save_model(iteration)
+            if iteration == iters and o.normalize_colors_before_saving:
+                normalize_colors_before_saving(self.model, self.shading,
+                                               reference_idx=0)
+                print("baked reference color correction into Gaussian colors")
             if iteration in self.cfg.checkpoint_iterations:
                 path = os.path.join(log.model_path, f"chkpnt{iteration}")
                 save_checkpoint(path, self, iteration)
@@ -839,7 +1010,8 @@ class Trainer:
         for split in ("train", "test"):
             sums = {}
             n_logged = 0
-            for mname, tviews in self.modal_views:
+            for (mname, tviews), (_, _, pan_mode, idx_off) in zip(
+                    self.modal_views, self._modalities()):
                 views = (tviews if split == "train"
                          else [v for v in self.scene.test_views
                                if v.image_type == mname and not v.is_virtual])
@@ -849,8 +1021,8 @@ class Trainer:
                     out = render_view_full(
                         self.model, view.camera, self.raster_cfg,
                         shading=self.shading if split == "train" else test_sh,
-                        view_idx=vi if split == "train" else 0,
-                        with_sun=view.camera.has_sun)
+                        view_idx=vi + idx_off if split == "train" else 0,
+                        with_sun=view.camera.has_sun, pan_mode=pan_mode)
                     gt = np.clip(view.image, 0.0, 1.0)
                     img = out["final"]
                     c = min(img.shape[0], gt.shape[0])

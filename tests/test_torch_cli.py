@@ -263,14 +263,27 @@ def tiny_scene(tmp_path_factory):
     (["train", "--raster-backend", "a2a"], "item 13"),
     (["train", "--coordinator", "localhost:1234"], "item 13"),
     (["train", "--views-per-step", "2"], "item 13"),
-    (["train", "--preset", "eogsplus"], "item 9"),
-    (["train", "--preset", "optical_flow"], "item 9"),
     (["train", "--steps-per-dispatch", "4"], "Deliberate differences"),
 ])
 def test_unported_options_raise(tiny_scene, tmp_path, argv, match):
     with pytest.raises(NotImplementedError, match=match):
         cli.main(argv + [*CPU, "--scene-dir", tiny_scene, "--model-path",
                          str(tmp_path / "run"), "--iterations", "2"])
+
+
+@pytest.mark.parametrize("preset", ["eogsplus", "optical_flow"])
+def test_cli_trains_pan_preset(tiny_scene, tmp_path, card_machine, preset):
+    """The paper's presets train through the CLI on the tiny scene (3PAN:
+    the scene's images loaded as PAN cameras) and write the model."""
+    run = str(tmp_path / "run")
+    assert cli.main(["train", "--preset", preset, *CPU, "--scene-dir",
+                     tiny_scene, "--model-path", run, "--iterations",
+                     "2"]) == 0
+    with open(os.path.join(run, "cfg_args.json")) as f:
+        assert json.load(f) == {"preset": preset, "scene_dir": tiny_scene,
+                                "iterations": 2}
+    assert os.path.getsize(os.path.join(
+        run, "point_cloud", "iteration_2", "point_cloud.ply")) > 0
 
 
 def test_cli_needs_a_card_without_device(tmp_path, monkeypatch):

@@ -51,6 +51,17 @@ DENSE = [("gather", False), ("gather", True), ("sorted", False),
          ("sorted", True)]
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """Run this file's torch ops on one thread: beside the other test
+    workers, torch's default pool (one thread per core) oversubscribes the
+    cores and its many small parallel regions slow the file down."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _t(x):
     return torch.from_numpy(np.array(x))
 

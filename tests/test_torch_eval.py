@@ -43,6 +43,17 @@ from eogs2_tpu_torch.scene import load_scene as t_load
 SCALE = 12.0
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """Run this file's torch ops on one thread: beside the other test
+    workers, torch's default pool (one thread per core) oversubscribes the
+    cores and its many small parallel regions slow the file down."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _dsm_pair(seed, shape=(150, 140), shift=(2, -3), b=-0.7, holes=0.02):
     """A smooth DSM with NaN holes and a shifted, offset copy of it."""
     rng = np.random.RandomState(seed)

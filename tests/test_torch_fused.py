@@ -41,6 +41,17 @@ ATOL, RTOL = 5e-5, 1e-4
 GOLDEN = os.path.join(os.path.dirname(__file__), "golden", "scene1.npz")
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """Run this file's torch ops on one thread: beside the other test
+    workers, torch's default pool (one thread per core) oversubscribes the
+    cores and its many small parallel regions slow the file down."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _t(args):
     return [torch.from_numpy(np.array(a)) for a in args]
 

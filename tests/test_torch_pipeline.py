@@ -40,6 +40,17 @@ JCFG = JConfig(binning_mode="fused", eogs_features=True, tile_capacity=2048,
 TCFG = TConfig(binning_mode="fused", eogs_features=True)
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """Run this file's torch ops on one thread: beside the other test
+    workers, torch's default pool (one thread per core) oversubscribes the
+    cores and its many small parallel regions slow the file down."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _knn_dist2(xyz, k=3):
     d2 = ((xyz[:, None, :] - xyz[None, :, :]) ** 2).sum(-1)
     np.fill_diagonal(d2, np.inf)

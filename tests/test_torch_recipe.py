@@ -60,6 +60,17 @@ JCFG = JConfig(binning_mode="gather", tile_capacity=1024,
 TCFG = RasterizeConfig(binning_mode="fused", tile_cull=True)
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """Run this file's torch ops on one thread: beside the other test
+    workers, torch's default pool (one thread per core) oversubscribes the
+    cores and its many small parallel regions slow the file down."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 # ---------------------------------------------------------------------------
 # one state in both packages
 # ---------------------------------------------------------------------------

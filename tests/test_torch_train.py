@@ -67,6 +67,17 @@ LOSSES = os.path.join(os.path.dirname(__file__), "golden", "losses1.npz")
 PRESETS = ("baseogs", "eogsplus", "learnwv", "optical_flow")
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """Run this file's torch ops on one thread: beside the other test
+    workers, torch's default pool (one thread per core) oversubscribes the
+    cores and its many small parallel regions slow the file down."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _t(x):
     return torch.from_numpy(np.array(x))
 
@@ -578,26 +589,9 @@ def test_trainer_trains_and_prunes(scenes):
     assert float(tr.model.denom.max()) > 0
 
 
-@pytest.mark.parametrize("opt,match", [
-    ({"itr_apply_flowmatching_to_affine": 3}, "baking flow"),
-    ({"normalize_colors_before_saving": True}, "normalize_colors"),
-    ({"color_reset_iterations": 2}, "colour reset"),
-])
-def test_trainer_raises_for_unported_parts(scenes, opt, match):
-    tr = _trainer(scenes, **opt)
-    with pytest.raises(NotImplementedError, match=match):
-        tr.train(4)
-
-
 def test_step_raises_for_unported_options(scenes):
     tr = _trainer(scenes)
     mods = (("msi", tr.consts, None, 0),)
     args = (tr.cfg, tr.raster_cfg, tt.Phase(), tr.gauss_opt, tr.cam_opt)
     with pytest.raises(NotImplementedError, match="item 13"):
         tt.make_train_step(mods, *args, raster_backend="a2a")
-    with pytest.raises(NotImplementedError, match="item 9"):
-        tt.make_train_step((("pan", tr.consts, "fixed", 0),), *args)
-    with pytest.raises(NotImplementedError, match="item 9"):
-        tt.make_train_step(mods, tr.cfg, tr.raster_cfg,
-                           tt.Phase(enable_flowmatch=True), tr.gauss_opt,
-                           tr.cam_opt)

@@ -105,9 +105,17 @@ the dense routes were added, so that their times stay comparable):
      above its widest Gaussian, both checked), its Nadir.tif equal to
      nadir_dsm of load_model's model and the PLY's rows equal to the
      checkpoint's alive rows; eval-dsm of that DSM within 0.05 m of the
-     hook's MAE; the video's 8 frames. Stage seconds, save_model's seconds,
-     the checkpoint's bytes, the render's seconds per view. Neither
-     imageio nor Pillow may be imported;
+     hook's MAE; tsdf --export-mesh of the render's 6 train altitude maps
+     at 0.5 m voxels (483 x 483 x 199 = 46,424,511 voxels, 12 slabs) and
+     eval-dsm of its DSM (seconds by part, peak memory, mesh size, the TSDF
+     DSM's MAE beside the Nadir DSM's); the same maps mirrored to run south
+     (the synthetic affines' v = +y gives every view weight 0) through
+     run_tsdf at full size with the mesh, and the TSDF gates at 4 m: one
+     slab against slabs of 1000 voxels bit-identical, the card's
+     integration and run_tsdf against the port's own on the CPU
+     (tests/test_torch_tsdf.py's tolerances); the video's 8 frames. Stage
+     seconds, save_model's seconds, the checkpoint's bytes, the render's
+     seconds per view. Neither imageio nor Pillow may be imported;
  12. the paper's recipe (eogsplus: 3PAN, flow matching, the flow bake, the
      colour operations) on the scene of phase 5 in modality "ms" (each
      view's PAN companion derived from its MSI image, run after phase 11):
@@ -121,12 +129,19 @@ the dense routes were added, so that their times stay comparable):
      render against itself rolled by (+3, -2) px within 0.05 px; then the
      dual MS mode "fixed" (msi and pan per step: 6 renders) for 5 steps
      with the flow phase and 5 without. K1 and K2 launches of both runs;
- 13. the safe route (gather, the plain dense blend) in one training step at
+ 13. full-eval through cli.main at a reduced size (run after phase 9):
+     make-synthetic of a 256x256 scene with 9 views, full-eval (baseogs,
+     --raster-mode fused, 200 iterations, --export-mesh): train, render,
+     the Nadir DSM's MAE, tsdf, the TSDF DSM's MAE, both stage lines finite,
+     the TSDF DSM and the OBJ written, no render clipped; metrics_cli on
+     the test renders against their GT (a finite PSNR); K1 and K2
+     launches; imageio and Pillow blocked;
+ 14. the safe route (gather, the plain dense blend) in one training step at
      256x256 with about 20k Gaussians, on the card and on the CPU from the
      same state and draws: loss terms within rel 1e-4, every gradient
      within 2e-4 of its largest value; it launches no hand-written kernel;
- 14. the kernel table line (K1's and K2's launches include phases 10, 11
-     and 12), then the last line.
+ 15. the kernel table line (K1's and K2's launches include phases 10, 11,
+     12 and 13), then the last line.
 """
 
 from __future__ import annotations
@@ -742,13 +757,20 @@ class capture_blend_calls:
     K2 inputs (payload, ranges, out8, cotangent, grid_x). rasterize_fused
     reads FusedBlend from its module, so the block swaps in a subclass that
     records and then runs the original forward and backward (the kernels
-    launch and count as usual)."""
+    launch and count as usual). With `keep`, only the last `keep` of each
+    are held, so a long run does not hold every step's inputs."""
+
+    def __init__(self, keep=None):
+        self.keep = keep
 
     def __enter__(self):
+        import collections
+
         from eogs2_tpu_torch.ops import fused_raster as fr
 
         self.fr, orig = fr, fr.FusedBlend
-        self.fwd_pays, self.bwd_calls = [], []
+        self.fwd_pays = collections.deque(maxlen=self.keep)
+        self.bwd_calls = collections.deque(maxlen=self.keep)
         cap = self
 
         class Recording(orig):
@@ -1705,9 +1727,68 @@ CLI_ARTIFACTS = ("altitude", "acc_opacity", "final", "raw_render", "cc", "gt",
                  "flow_matched_image", "gt_flowmatch")  # tests/test_cli.py
 
 
+class StageRunner:
+    """Runs a command-line main (`main(argv)`, by default the one given)
+    as a named stage: its stdout captured into `printed[stage]` and echoed
+    to stderr, its wall seconds, ending in a synchronize, in
+    `stages[stage]`; a return code other than 0 raises."""
+
+    def __init__(self, device, main):
+        self.device, self.main = device, main
+        self.stages, self.printed = {}, {}
+
+    def __call__(self, stage, argv, main=None):
+        import contextlib
+        import io
+
+        import torch
+
+        buf = io.StringIO()
+        t = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rc = (main or self.main)(argv)
+        if self.device.type == "cuda":
+            torch.cuda.synchronize()
+        self.stages[stage] = time.perf_counter() - t
+        self.printed[stage] = buf.getvalue()
+        print(buf.getvalue(), end="", file=sys.stderr, flush=True)
+        print(f"{stage}: {self.stages[stage]:.1f} s", file=sys.stderr,
+              flush=True)
+        if rc != 0:
+            raise AssertionError(f"{stage} ({argv[0]}) returned {rc}")
+        gc.collect()
+
+
+class image_libraries_blocked:
+    """Within the block imageio and Pillow are unimportable: the card's
+    installation has Pillow (its TensorBoard's image encoder) and no
+    imageio, and a phase run so shows that the port reads and writes its
+    files without them. `loaded()` lists those of them in sys.modules."""
+
+    NAMES = ("imageio", "imageio.v2", "PIL", "PIL.Image")
+
+    def __enter__(self):
+        self.saved = {m: sys.modules.get(m) for m in self.NAMES}
+        sys.modules.update(dict.fromkeys(self.NAMES))
+        return self
+
+    @staticmethod
+    def loaded():
+        return sorted(m for m in sys.modules if m.split(".")[0] in
+                      ("imageio", "PIL") and sys.modules[m] is not None)
+
+    def __exit__(self, *exc):
+        for m, mod in self.saved.items():
+            if mod is None:
+                del sys.modules[m]
+            else:
+                sys.modules[m] = mod
+
+
 def phase_cli(device, scene, width=1024, scale=142.0, n_views=7, hf_res=768,
               n_buildings=24, iterations=100, resume_iterations=10,
-              frames=8, tile_capacity=16384, max_tiles_per_gaussian=1024):
+              frames=8, tile_capacity=16384, max_tiles_per_gaussian=1024,
+              vox_size=0.5, gate_vox_size=4.0):
     """The CLI end to end through cli.main, on the card, in a temporary
     directory: make-synthetic of train-1M-1024's scene (checked against
     `scene`, the same scene built in memory), train (baseogs on the fused
@@ -1715,39 +1796,23 @@ def phase_cli(device, scene, width=1024, scale=142.0, n_views=7, hf_res=768,
     and training_report at the end), the checkpoint restored into a fresh
     Trainer (bit-equal), a resumed run from the first checkpoint, render
     (the gather route with the plain blend, tile_capacity above every
-    render's densest tile), eval-dsm of its Nadir DSM, and the video's
-    frames. Neither imageio nor Pillow may be imported (both are blocked in
+    render's densest tile), eval-dsm of its Nadir DSM, tsdf --export-mesh
+    of the render's altitude maps at vox_size (its seconds by part, voxels,
+    slabs, peak memory, the mesh) and eval-dsm of the TSDF DSM, the TSDF
+    checks (tsdf_checks) on the same altitude maps, and the video's frames.
+    Neither imageio nor Pillow may be imported (both are blocked in
     sys.modules for the phase). Returns the K1 and K2 launches of the
     run."""
-    def libraries():
-        return sorted(m for m in sys.modules if m.split(".")[0] in
-                      ("imageio", "PIL") and sys.modules[m] is not None)
-
-    # the card's installation has Pillow (its TensorBoard's image encoder)
-    # and no imageio: both are made unimportable for the phase, so the run
-    # shows that the port reads and writes its files without them
-    libs_before = libraries()
-    blocked = {m: sys.modules.get(m) for m in ("imageio", "imageio.v2",
-                                               "PIL", "PIL.Image")}
-    sys.modules.update(dict.fromkeys(blocked))
-    try:
+    with image_libraries_blocked():
         return _phase_cli(device, scene, width, scale, n_views, hf_res,
                           n_buildings, iterations, resume_iterations, frames,
-                          tile_capacity, max_tiles_per_gaussian, libraries,
-                          libs_before)
-    finally:
-        for m, mod in blocked.items():
-            if mod is None:
-                del sys.modules[m]
-            else:
-                sys.modules[m] = mod
+                          tile_capacity, max_tiles_per_gaussian, vox_size,
+                          gate_vox_size)
 
 
 def _phase_cli(device, scene, width, scale, n_views, hf_res, n_buildings,
                iterations, resume_iterations, frames, tile_capacity,
-               max_tiles_per_gaussian, libraries, libs_before):
-    import contextlib
-    import io
+               max_tiles_per_gaussian, vox_size, gate_vox_size):
     import tempfile
 
     import torch
@@ -1766,24 +1831,8 @@ def _phase_cli(device, scene, width, scale, n_views, hf_res, n_buildings,
     from eogs2_tpu_torch.train import Trainer
 
     dev = ["--device", str(device)]
-    stages, printed = {}, {}
-
-    def run(stage, argv):
-        buf = io.StringIO()
-        t = time.perf_counter()
-        with contextlib.redirect_stdout(buf):
-            rc = cli.main(argv)
-        if device.type == "cuda":
-            torch.cuda.synchronize()
-        stages[stage] = time.perf_counter() - t
-        printed[stage] = buf.getvalue()
-        print(buf.getvalue(), end="", file=sys.stderr, flush=True)
-        print(f"cli {stage}: {stages[stage]:.1f} s", file=sys.stderr,
-              flush=True)
-        if rc != 0:
-            raise AssertionError(f"cli {argv[0]} returned {rc}")
-        gc.collect()
-
+    run = StageRunner(device, cli.main)
+    stages, printed = run.stages, run.printed
     save_s = []
     save_model = train_mod.Trainer.save_model
 
@@ -1946,6 +1995,42 @@ def _phase_cli(device, scene, width, scale, n_views, hf_res, n_buildings,
             raise AssertionError(f"eval-dsm MAE {eval_mae}, hook's "
                                  f"{hook_mae}")
 
+        # TSDF fusion of the render's train altitude maps, then its DSM's MAE
+        if device.type == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+        with time_tsdf_parts(device) as tsdf_parts:
+            run("tsdf", ["tsdf", *dev, "--scene-dir", sdir, "--model-path",
+                         runp, "--vox-size", str(vox_size),
+                         "--export-mesh"])
+        tsdf_peak = (torch.cuda.max_memory_allocated()
+                     if device.type == "cuda" else None)
+        tsdf_dir = os.path.join(runp, "test_opNone", f"ours_{iterations}",
+                                "tsdf")
+        run("eval_dsm_tsdf", ["eval-dsm", *dev, "--pred",
+                              os.path.join(tsdf_dir, "dsm.tif"),
+                              "--gt-heightfield",
+                              os.path.join(sdir, "gt_heightfield.npy"),
+                              "--scale", str(scale)])
+        tsdf_mae = json.loads(printed["eval_dsm_tsdf"].strip().splitlines()[
+            -1])["mae"]
+        tsdf_dsm, _ = read_geotiff(os.path.join(tsdf_dir, "dsm.tif"))
+        if not (np.isfinite(tsdf_mae) and np.isfinite(tsdf_dsm).mean() > 0.5
+                and tsdf_parts.faces > 0 and os.path.getsize(os.path.join(
+                    tsdf_dir, "output_mesh.obj")) > 0):
+            raise AssertionError(f"tsdf: MAE {tsdf_mae}, finite share "
+                                 f"{np.isfinite(tsdf_dsm).mean()}, faces "
+                                 f"{tsdf_parts.faces}")
+        tsdf_log = dict(stage_s=stages["tsdf"], parts_s=tsdf_parts.parts(
+            stages["tsdf"]), voxels=tsdf_parts.voxels, shape=tsdf_parts.shape,
+            slabs=tsdf_parts.slabs, max_memory_allocated=tsdf_peak,
+            mesh_vertices=tsdf_parts.vertices, mesh_faces=tsdf_parts.faces,
+            weight_max=tsdf_parts.weight_max, tsdf_dsm_mae=tsdf_mae,
+            nadir_dsm_mae=eval_mae)
+        del tsdf_dsm
+        gc.collect()
+        checks = tsdf_checks(device, loaded, os.path.join(base, "altitude"),
+                             sdir, scale, vox_size, gate_vox_size, tmp)
+
         with record_renders("pipeline", "renderer") as vdemand:
             run("video", ["video", *dev, *rargs, "--n-frames", str(frames)])
         vdensest, vwidest = vdemand.maxima()
@@ -1957,8 +2042,8 @@ def _phase_cli(device, scene, width, scale, n_views, hf_res, n_buildings,
         ply_bytes = os.path.getsize(os.path.join(
             runp, "point_cloud", f"iteration_{iterations}", "point_cloud.ply"))
 
-    libs = libraries()
-    if libs != libs_before or libs:
+    libs = image_libraries_blocked.loaded()
+    if libs:
         raise AssertionError(f"the CLI imported {libs}")
     if k2 != iterations + resume_iterations or k1 <= k2:
         raise AssertionError(f"K1 {k1}, K2 {k2} launches over "
@@ -1986,7 +2071,302 @@ def _phase_cli(device, scene, width, scale, n_views, hf_res, n_buildings,
              train_k1_k2=train_k, k1_launches=k1, k2_launches=k2,
              nadir_tif_equal=nadir_equal, ply_rows_equal=ply_equal,
              **CARD))
+    log(dict(phase="cli_tsdf", config=f"tsdf --export-mesh at {vox_size} m "
+             f"voxels of the render's {n_train} train altitude maps at "
+             f"{width}^2 (the 1M-Gaussian model of phase cli), then "
+             "eval-dsm of its DSM", **tsdf_log, **CARD))
+    log(dict(phase="tsdf_checks", **checks, **CARD))
     return k1, k2
+
+
+class time_tsdf_parts:
+    """Within the block, the wall seconds of run_tsdf's parts, each call
+    ending in a synchronize: the voxel grid (TSDFVolume.__init__), the view
+    weights (_view_weights), the rest of integrate_views, the prior, the
+    mesh (extract_mesh and export_obj) and the DSM (extract_dsm_points and
+    flatten_cloud); and the volume's shape and slabs, the largest weight,
+    the mesh's vertices and faces."""
+
+    def __init__(self, device):
+        self.device = device
+
+    def __enter__(self):
+        from eogs2_tpu_torch.eval import dsm, mesh, tsdf
+
+        self.seconds = {}
+        self.shape = self.slabs = None
+        self.vertices = self.faces = self.weight_max = None
+        vol = tsdf.TSDFVolume
+        self.saved = [(vol, "__init__", "volume_s"),
+                      (tsdf, "_view_weights", "view_weights_s"),
+                      (vol, "integrate_views", "integrate_s"),
+                      (vol, "apply_prior", "prior_s"),
+                      (vol, "extract_mesh", "mesh_s"),
+                      (mesh, "export_obj", "mesh_s"),
+                      (vol, "extract_dsm_points", "dsm_s"),
+                      (dsm, "flatten_cloud", "dsm_s")]
+        for owner, attr, key in self.saved:
+            setattr(owner, attr, self._timed(getattr(owner, attr), key))
+        return self
+
+    def _sync(self):
+        import torch
+
+        if self.device.type == "cuda":
+            torch.cuda.synchronize()
+
+    def _timed(self, fn, key):
+        def timed(*a, **kw):
+            self._sync()
+            t = time.perf_counter()
+            out = fn(*a, **kw)
+            self._sync()
+            self.seconds[key] = (self.seconds.get(key, 0.0)
+                                 + time.perf_counter() - t)
+            if fn.__name__ == "__init__":
+                v = a[0]
+                self.shape = list(v.shape)
+                n = int(np.prod(v.shape))
+                self.slabs = -(-n // max(1, min(v.slab_voxels, n)))
+            elif fn.__name__ == "extract_mesh":
+                self.vertices, self.faces = len(out[0]), len(out[1])
+            elif fn.__name__ == "integrate_views":
+                self.weight_max = float(a[0].weight.max())
+            return out
+        timed.orig = fn
+        return timed
+
+    @property
+    def voxels(self):
+        return int(np.prod(self.shape))
+
+    def parts(self, total):
+        """The seconds by part, integrate without the view weights, and
+        the rest of `total` (the scene and altitude reads, the writes)."""
+        p = dict(self.seconds)
+        p["integrate_s"] -= p.get("view_weights_s", 0.0)
+        p["rest_s"] = total - sum(p.values())
+        return p
+
+    def __exit__(self, *exc):
+        for owner, attr, _ in self.saved:
+            setattr(owner, attr, getattr(owner, attr).orig)
+
+
+def south_maps(maps):
+    """The same views with their image rows running south (the v axis and
+    the rows mirrored, so each pixel sees the same ground point): the
+    synthetic scene's affines (make_affine) have v = +y, for which every
+    view's cos-angle weight is 0 in both packages and fusion leaves the
+    volume as it was."""
+    flip = np.array([1.0, -1.0, 1.0], np.float32)
+    return {k: (flip[:, None] * c, flip * i, np.ascontiguousarray(a[::-1]))
+            for k, (c, i, a) in maps.items()}
+
+
+def tsdf_checks(device, scene, alt_dir, sdir, scale, vox_size, gate_vox_size,
+                tmp):
+    """On the render's train altitude maps of phase cli (`scene` is the
+    loaded scene, `alt_dir` the maps' directory), mirrored to run south so
+    the views carry weight (south_maps): run_tsdf at vox_size without the
+    mesh (the CLI stage times the mesh; here: seconds by part, peak memory,
+    the DSM's MAE against the scene's heightfield); then the gates at gate_vox_size: one slab against
+    slabs of 1000 voxels bit-identical on the card, and the card's
+    integrate_views and run_tsdf against the port's own on the CPU (per-view
+    keep decisions differing in at most 1e-4 of the voxels, tsdf and
+    weight within 1e-5 where every decision agrees; the same NaN cells,
+    the DSM within 1e-3 m), tests/test_torch_tsdf.py's tolerances."""
+    import torch
+
+    from eogs2_tpu_torch.eval import tsdf
+    from eogs2_tpu_torch.eval.mae import MaeComputer
+    from eogs2_tpu_torch.io.geotiff import read_geotiff, write_geotiff
+
+    with open(os.path.join(sdir, "affine_models.json")) as f:
+        md0 = json.load(f)[0]["model"]
+    maps = {}
+    for v in scene.train_views:
+        alt, _ = read_geotiff(os.path.join(alt_dir, v.name + ".tif"))
+        a = v.camera.affine.detach().cpu().numpy()
+        maps[v.name] = (a[:, :3], a[:, 3], np.asarray(alt, np.float32))
+    maps = south_maps(maps)
+    bounds = (md0["scale"], md0["min_world"], md0["max_world"],
+              md0["center"])
+
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    with time_tsdf_parts(device) as parts:
+        profile, dsm = tsdf.run_tsdf(sdir, maps, *bounds, vox_size=vox_size,
+                                     device=device)
+    total = time.perf_counter() - t
+    peak = (torch.cuda.max_memory_allocated() if device.type == "cuda"
+            else None)
+    path = os.path.join(tmp, "south_dsm.tif")
+    write_geotiff(path, dsm, transform=profile["transform"])
+    mae = MaeComputer.from_synthetic(sdir, scale=scale).compute_mae_from_path(
+        path)[0]
+    finite = float(np.isfinite(dsm).mean())
+    del dsm
+    gc.collect()
+
+    # gates at gate_vox_size
+    cpu = torch.device("cpu")
+
+    def views(dev):
+        return tsdf.TsdfViews(*(torch.as_tensor(np.stack(
+            [m[k] for m in maps.values()]).astype(np.float32), device=dev)
+            for k in range(3)))
+
+    vb = np.stack([np.asarray(md0["min_world"]), np.asarray(
+        md0["max_world"])], axis=1) * md0["scale"]
+    slab_vols = []
+    for slab in (1 << 30, 1000):
+        vol = tsdf.TSDFVolume(vb, gate_vox_size, 4.0, slab_voxels=slab,
+                              device=device)
+        vol.integrate_views(views(device), md0["scale"])
+        vol.apply_prior()
+        slab_vols.append(vol)
+    slab_equal = bool(torch.equal(slab_vols[0].tsdf, slab_vols[1].tsdf)
+                      and torch.equal(slab_vols[0].weight,
+                                      slab_vols[1].weight))
+    vols = {}
+    for dev in (device, cpu):
+        vol = tsdf.TSDFVolume(vb, gate_vox_size, 4.0, device=dev)
+        vol.integrate_views(views(dev), md0["scale"])
+        vols[dev.type] = vol
+    vc, vh = vols[device.type], vols["cpu"]
+    wc, wh = tsdf._view_weights(views(device)), tsdf._view_weights(views(cpu))
+    agree = torch.ones(vh.shape, dtype=torch.bool)
+    for i in range(len(maps)):
+        keeps = []
+        for vol, w, vv in ((vc, wc, views(device)), (vh, wh, views(cpu))):
+            sdf, valid, _ = tsdf.sample_sdf(
+                vv.coefs[i], vv.inters[i], vv.altitudes[i], w[i],
+                vol.world_coords, md0["scale"])
+            keeps.append((valid & (sdf >= -vol.trunc)).cpu())
+        agree &= (keeps[0] == keeps[1]).reshape(vh.shape)
+    volume_err = max(float((getattr(vc, f).cpu() - getattr(vh, f)).abs()[
+        agree].max()) for f in ("tsdf", "weight"))
+    keep_differ = float((~agree).float().mean())
+    weighted = float((vh.weight > 0).float().mean())
+    outs = {}
+    for dev in (device, cpu):
+        outs[dev.type] = tsdf.run_tsdf(sdir, maps, *bounds,
+                                       vox_size=gate_vox_size, device=dev)[1]
+    dc, dh = outs[device.type], outs["cpu"]
+    nan_equal = bool(np.array_equal(np.isnan(dc), np.isnan(dh)))
+    dsm_err = float(np.nanmax(np.abs(dc - dh))) if np.isfinite(dh).any() \
+        else float("nan")
+    out = dict(
+        config=f"run_tsdf on the phase's {len(maps)} train altitude maps "
+               f"mirrored to run south, {vox_size} m; gates at "
+               f"{gate_vox_size} m",
+        south_s=total, south_parts_s=parts.parts(total),
+        south_voxels=parts.voxels, south_shape=parts.shape,
+        south_slabs=parts.slabs, south_max_memory_allocated=peak,
+        south_weight_max=parts.weight_max, south_dsm_mae=mae,
+        south_dsm_finite=finite, gate_shape=list(vh.shape),
+        gate_weighted_share=weighted, gate_slabs_bit_equal=slab_equal,
+        gate_keep_differ_share=keep_differ, gate_volume_max_err=volume_err,
+        gate_dsm_nan_equal=nan_equal, gate_dsm_max_err=dsm_err)
+    if not (np.isfinite(mae) and finite > 0.5
+            and weighted > 0.1 and slab_equal and keep_differ <= 1e-4
+            and volume_err <= 1e-5 and nan_equal and dsm_err <= 1e-3):
+        raise AssertionError(f"tsdf checks: {out}")
+    return out
+
+
+# ----------------------------------------------------------------------------
+# full-eval: train, render, the Nadir DSM's MAE, tsdf, the TSDF DSM's MAE
+# ----------------------------------------------------------------------------
+
+
+def phase_full_eval(device, width=256, n_views=9, iterations=200,
+                    tile_capacity=4096, max_tiles_per_gaussian=1024):
+    """cli.main's full-eval at a reduced size, as users run it after
+    training: make-synthetic of a width^2 scene with n_views views, then
+    full-eval --preset baseogs --raster-mode fused for `iterations`
+    iterations with --export-mesh (train, render on the gather route with
+    the plain blend, the Nadir DSM's MAE, tsdf, the TSDF DSM's MAE); both
+    stage lines must print finite MAEs, the TSDF DSM and the OBJ must
+    exist; then metrics_cli on the test views' renders against their GT
+    (a finite PSNR). K1 and K2 are held against their plain versions at
+    the last training step's render, captured from the run. Imageio and
+    Pillow are blocked, as in phase cli. Returns the K1 and K2 launches of
+    the full-eval run and the two kernels' reports at that render."""
+    import tempfile
+
+    import torch
+
+    from eogs2_tpu_torch import cli, metrics_cli
+    from eogs2_tpu_torch.ops.fused_raster import (SortedPairs,
+                                                  fused_blend_bwd,
+                                                  fused_blend_fwd)
+
+    dev = ["--device", str(device)]
+    run = StageRunner(device, cli.main)
+    stages, printed = run.stages, run.printed
+
+    with image_libraries_blocked(), tempfile.TemporaryDirectory() as tmp:
+        sdir, runp = os.path.join(tmp, "scene"), os.path.join(tmp, "run")
+        run("make_synthetic", [
+            "make-synthetic", *dev, "--out", sdir, "--n-views", str(n_views),
+            "--width", str(width), "--height", str(width)])
+        fused_blend_fwd.launches = 0
+        fused_blend_bwd.launches = 0
+        with record_renders("pipeline", "renderer") as demand, \
+                capture_blend_calls(keep=1) as cap:
+            run("full_eval", [
+                "full-eval", *dev, "--scene-dir", sdir, "--model-path", runp,
+                "--preset", "baseogs", "--raster-mode", "fused",
+                "--iterations", str(iterations), "--tile-capacity",
+                str(tile_capacity), "--max-tiles-per-gaussian",
+                str(max_tiles_per_gaussian), "--export-mesh"])
+        k1, k2 = fused_blend_fwd.launches, fused_blend_bwd.launches
+        # K1 and K2 at the last training step's render (baseogs renders
+        # once a step before iteration 1000)
+        pay, tstart, cnt, out8, g_out8, gx = cap.bwd_calls[-1]
+        del cap
+        sp = SortedPairs(pay, tstart, cnt, None)
+        k1_rep, k1_out8 = compare_k1(sp, gx)
+        if not torch.equal(k1_out8, out8):
+            raise AssertionError("K1 at full-eval's last training render "
+                                 "differs from the step's own out8")
+        k2_rep, _ = compare_k2_at(sp, gx, out8, g_out8)
+        del sp, k1_out8, pay, tstart, cnt, out8, g_out8
+        densest, widest = demand.maxima()
+        lines = [json.loads(ln) for ln in printed["full_eval"].splitlines()
+                 if ln.startswith('{"stage"')]
+        maes = {ln["stage"]: ln["mae"] for ln in lines}
+        out = os.path.join(runp, "test_opNone", f"ours_{iterations}")
+        written = {f: os.path.exists(os.path.join(out, "tsdf", f))
+                   for f in ("dsm.tif", "output_mesh.obj")}
+        run("metrics", [
+            "--renders", os.path.join(out, "final"), "--gt",
+            os.path.join(out, "gt"), "--device", str(device)],
+            main=metrics_cli.main)
+        metrics = json.loads(printed["metrics"].strip().splitlines()[-1])
+        libs = image_libraries_blocked.loaded()
+    log(dict(phase="full_eval", config=f"make-synthetic {width}^2, "
+             f"{n_views} views; full-eval baseogs --raster-mode fused, "
+             f"{iterations} iterations, render K {tile_capacity}, "
+             f"max_tiles_per_gaussian {max_tiles_per_gaussian}, tsdf at 0.5 m "
+             "with the mesh; metrics_cli on the test renders",
+             stage_s=stages, maes=maes, written=written, metrics=metrics,
+             max_tile_count=densest, max_tiles_per_gaussian_seen=widest,
+             k1_launches=k1, k2_launches=k2, k1_at_last_render=k1_rep,
+             k2_at_last_render=k2_rep, **CARD))
+    if not (list(maes) == ["eval_dsm", "eval_dsm_tsdf"]
+            and all(np.isfinite(v) for v in maes.values())
+            and all(written.values()) and np.isfinite(metrics["psnr"])
+            and k2 == iterations and k1 >= k2 and not libs
+            and densest < tile_capacity and widest <= max_tiles_per_gaussian):
+        raise AssertionError(f"full-eval: MAEs {maes}, files {written}, "
+                             f"metrics {metrics}, K1 {k1}, K2 {k2}, "
+                             f"libraries {libs}, densest {densest}, widest "
+                             f"{widest}")
+    return k1, k2, k1_rep, k2_rep
 
 
 # ----------------------------------------------------------------------------
@@ -2559,6 +2939,7 @@ def main() -> int:
     del arrays
     gc.collect()
     k4_serve_launches, k4_serve, k4_serve_at = phase_serve_dense(device)
+    full_k1, full_k2, full_k1_rep, full_k2_rep = phase_full_eval(device)
     phase_safe_small(device)
 
     view = per_render["view"]
@@ -2579,24 +2960,27 @@ def main() -> int:
     log({"kernels": [
         entry("fused_blend_fwd (K1)", "fused_blend_fwd.cu",
               "fused_raster.py:532", serve_launches + k1_launches
-              + recipe_k1 + cli_k1 + eplus_k1, view,
+              + recipe_k1 + cli_k1 + eplus_k1 + full_k1, view,
               max_abs_err=max(max(r["max_abs_err_ch0_4"],
                                   r["max_abs_err_final_t"])
                               for r in (*per_render.values(),
-                                        *k1_at.values(), eplus_k1_rep)),
+                                        *k1_at.values(), eplus_k1_rep,
+                                        full_k1_rep)),
               n_contrib_mismatches=sum(r["n_contrib_mismatches"]
                                        for r in (*per_render.values(),
                                                  *k1_at.values(),
-                                                 eplus_k1_rep)),
+                                                 eplus_k1_rep, full_k1_rep)),
               **per_step(k1_at)),
         entry("fused_blend_bwd (K2)", "fused_blend_bwd.cu",
               "fused_raster.py:614", k2_launches + recipe_k2 + cli_k2
-              + eplus_k2, k2,
+              + eplus_k2 + full_k2, k2,
               max_abs_err=max(r["max_abs_err"]
-                              for r in (*k2_at.values(), eplus_k2_rep)),
+                              for r in (*k2_at.values(), eplus_k2_rep,
+                                        full_k2_rep)),
               max_row_rel_err=max(k2_small_err, *(r["max_row_rel_err"]
                                                   for r in (*k2_at.values(),
-                                                            eplus_k2_rep))),
+                                                            eplus_k2_rep,
+                                                            full_k2_rep))),
               **per_step(k2_at)),
         entry("fused_blend_fwd_rows (K3 forward)", "fused_blend_fwd.cu",
               "fused_raster.py:236", k3_launches["k3_fwd"], k3_fwd,

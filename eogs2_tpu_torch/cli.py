@@ -2,32 +2,38 @@
 
 Counterpart of ``eogs2_tpu/cli.py``, with its subcommands, argument names
 and defaults; parity targets the reference's entry points train_pan.py
-(train), render_pan.py (render artifacts), eval/eval_dsm.py (DSM MAE) and
-render_video.py (video), driven by preset x scene flags:
+(train), render_pan.py (render artifacts), eval/eval_dsm.py (DSM MAE),
+tsdf.py (TSDF fusion), full_eval_pan.py (train, render, eval-dsm and tsdf
+in sequence) and render_video.py (video), driven by preset x scene flags:
 
   python -m eogs2_tpu_torch.cli make-synthetic --out <dir>
   python -m eogs2_tpu_torch.cli train --scene-dir <dir> --model-path <out>
   python -m eogs2_tpu_torch.cli render --scene-dir <dir> --model-path <out>
   python -m eogs2_tpu_torch.cli eval-dsm --pred <dsm.tif> --gt-heightfield <npy>
+  python -m eogs2_tpu_torch.cli tsdf --scene-dir <dir> --model-path <out>
+  python -m eogs2_tpu_torch.cli full-eval --scene-dir <dir> --model-path <out>
   python -m eogs2_tpu_torch.cli video --scene-dir <dir> --model-path <out>
 
 ``--device`` names the device (default: CUDA, and every subcommand raises
 without it; ``--device cpu`` runs on the CPU). make-synthetic and eval-dsm
-compute on the host only, as in JAX.
+compute on the host only, as in JAX; tsdf fuses on the device and extracts
+the mesh on the host.
 
 Not ported yet, and raising NotImplementedError naming the ROADMAP item:
-the ``tsdf`` and ``full-eval`` subcommands (Queue 1 item 10); the
-multi-device options ``--n-devices`` > 1, ``--raster-backend a2a``,
+the multi-device options ``--n-devices`` > 1, ``--raster-backend a2a``,
 ``--coordinator``/``--num-processes``/``--process-id`` and
 ``--views-per-step`` > 1 (item 13). Every preset trains: ``eogsplus`` and
 ``optical_flow`` (3PAN, flow matching) load the scene's PAN cameras, from
 ``--images-pan`` (default ``<scene>/images``), as JAX's CLI does.
 ``--steps-per-dispatch`` other than 1 raises too: it batches steps into one
 TPU dispatch and has no counterpart here (ROADMAP "Deliberate
-differences"). One flag is the port's own: ``--max-tiles-per-gaussian``
+differences"). Two additions are the port's own: ``--max-tiles-per-gaussian``
 (default 16, JAX's fixed value), the dense routes' per-Gaussian tile
 clamp, which ``render`` and ``video`` need above the widest Gaussian for
-nothing to clip, as ``--tile-capacity`` above the densest tile.
+nothing to clip, as ``--tile-capacity`` above the densest tile; and
+``full-eval`` takes tsdf's ``--export-mesh`` (JAX's full-eval writes no
+mesh); it fuses at tsdf's default voxel size and truncation, as JAX's
+does.
 """
 
 from __future__ import annotations
@@ -233,12 +239,46 @@ def cmd_eval_dsm(args):
 
 
 def cmd_tsdf(args):
-    _unported("the tsdf subcommand (eval/tsdf.py, eval/mesh.py)", 10)
+    from eogs2_tpu_torch.eval.tsdf import run_tsdf_cli
+
+    return run_tsdf_cli(args)
 
 
 def cmd_full_eval(args):
-    _unported("the full-eval subcommand (train, render, eval-dsm and tsdf "
-              "in one process; tsdf)", 10)
+    """full_eval_pan.py parity: train -> render -> eval_dsm -> tsdf in one
+    process (full_eval_pan.py:23-31)."""
+    from eogs2_tpu_torch.eval.mae import MaeComputer
+    from eogs2_tpu_torch.scene import load_scene
+
+    rc = cmd_train(args)
+    if rc:
+        return rc
+    args.iteration = -1
+    rc = cmd_render(args)
+    if rc:
+        return rc
+    pc_root = os.path.join(args.model_path, "point_cloud")
+    it = max(int(d.split("_")[-1]) for d in os.listdir(pc_root))
+    pred = os.path.join(args.model_path, "test_opNone", f"ours_{it}", "dsm",
+                        "Nadir.tif")
+    gt_hf = os.path.join(args.scene_dir, "gt_heightfield.npy")
+    mc = None
+    if os.path.exists(gt_hf):
+        sc = load_scene(args.scene_dir, images_msi_path=None, eval_split=True,
+                        target_density=0.001, device=args.device)
+        mc = MaeComputer.from_synthetic(args.scene_dir, scale=sc.scene_scale)
+    if mc is not None and os.path.exists(pred):
+        mae, _, _ = mc.compute_mae_from_path(pred)
+        print(json.dumps({"stage": "eval_dsm", "mae": mae}))
+    args.vox_size = 0.5
+    args.trunc_margin_fact = 4.0
+    rc = cmd_tsdf(args)
+    tsdf_pred = os.path.join(args.model_path, "test_opNone", f"ours_{it}",
+                             "tsdf", "dsm.tif")
+    if mc is not None and os.path.exists(tsdf_pred):
+        mae, _, _ = mc.compute_mae_from_path(tsdf_pred)
+        print(json.dumps({"stage": "eval_dsm_tsdf", "mae": mae}))
+    return rc
 
 
 def cmd_make_synthetic(args):
@@ -336,6 +376,8 @@ def build_parser():
     ]:
         sp = sub.add_parser(name)
         common(sp)
+        if name == "full-eval":
+            sp.add_argument("--export-mesh", action="store_true")
         if name == "video":
             sp.add_argument("--out", default="",
                             help="output path; the frames go to <out without "

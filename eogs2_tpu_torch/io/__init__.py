@@ -7,6 +7,8 @@ Pillow or imageio, which are imported only then.
 
 from __future__ import annotations
 
+import os
+
 import numpy as np
 
 
@@ -44,3 +46,19 @@ def read_with_library(path: str, what: str) -> np.ndarray:
             f"{path} is {what}; reading it needs Pillow or imageio, and "
             f"neither can read it here") from None
     return np.asarray(iio.imread(path))
+
+
+def read_image(path: str) -> np.ndarray:
+    """Pixels of the image at path: a TIFF through ``io/tiff.py``, a PNG
+    through ``io/png.py``, any other format through
+    :func:`read_with_library`."""
+    ext = os.path.splitext(path)[1].lower()
+    if ext in (".tif", ".tiff"):
+        from eogs2_tpu_torch.io.tiff import read_tiff
+
+        return read_tiff(path)[0]
+    if ext == ".png":
+        from eogs2_tpu_torch.io.png import read_png
+
+        return read_png(path)
+    return read_with_library(path, f"a {ext or 'extension-less'} image")

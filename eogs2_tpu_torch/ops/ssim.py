@@ -1,4 +1,4 @@
-"""SSIM with the 11x11 sigma-1.5 Gaussian window.
+"""SSIM with the 11x11 sigma-1.5 Gaussian window, and PSNR.
 
 Counterpart of ``eogs2_tpu/ops/ssim.py``; parity target
 ``utils/loss_utils.py:43-85`` (the standard 3DGS SSIM): per-channel
@@ -49,3 +49,9 @@ def ssim(img1, img2, window_size: int = 11, sigma: float = 1.5, mask=None):
         return torch.mean(ssim_map)
     m = torch.broadcast_to(mask, ssim_map.shape).to(ssim_map.dtype)
     return torch.sum(ssim_map * m) / torch.clamp_min(torch.sum(m), 1.0)
+
+
+def psnr(img1, img2):
+    """Per-image PSNR, matching utils/image_utils.py:19-21."""
+    mse = torch.mean((img1 - img2) ** 2)
+    return 20.0 * torch.log10(1.0 / torch.sqrt(mse + 1e-12))

@@ -26,10 +26,8 @@ from typing import Dict, List, Optional
 import numpy as np
 
 from eogs2_tpu_torch.cameras import AffineCamera, camera_from_reference_convention
-from eogs2_tpu_torch.io import read_with_library
+from eogs2_tpu_torch.io import read_image
 from eogs2_tpu_torch.io.ply import read_point_cloud
-from eogs2_tpu_torch.io.png import read_png
-from eogs2_tpu_torch.io.tiff import read_tiff
 from eogs2_tpu_torch.rescalers import load_rescaler
 
 
@@ -106,14 +104,7 @@ def _load_image(images_dir: str, name: str, need_rescale: bool):
     path = os.path.join(images_dir, name)
     if not os.path.exists(path):
         return None
-    ext = os.path.splitext(name)[1].lower()
-    if ext in (".tif", ".tiff"):
-        img = read_tiff(path)[0]
-    elif ext == ".png":
-        img = read_png(path)
-    else:
-        img = read_with_library(path, f"a {ext or 'extension-less'} image")
-    img = np.asarray(img).astype(np.float32)
+    img = np.asarray(read_image(path)).astype(np.float32)
     if img.ndim == 2:
         img = img[..., None]
     if need_rescale:

@@ -2,7 +2,8 @@
 
   * tests/test_cli.py's chain (make-synthetic -> train with model saves,
     checkpoints, the MAE hook and the report -> render -> eval-dsm, and the
-    video frames) and its resume, without tsdf, at its sizes, with imageio,
+    video frames) and its resume, at its sizes (tsdf and full-eval:
+    tests/test_torch_tsdf.py), with imageio,
     Pillow, cv2 and TensorBoard made unimportable as on the card's machine;
   * render_sets against eogs2_tpu's on the same saved model (a PLY and the
     shading JAX's load_shading reads, written in the port's format): the
@@ -257,8 +258,8 @@ def tiny_scene(tmp_path_factory):
 
 
 @pytest.mark.parametrize("argv,match", [
-    (["tsdf"], "item 10"),
-    (["full-eval"], "item 10"),
+    (["tsdf", "--n-devices", "2"], "item 13"),
+    (["full-eval", "--n-devices", "2"], "item 13"),
     (["train", "--n-devices", "2"], "item 13"),
     (["train", "--raster-backend", "a2a"], "item 13"),
     (["train", "--coordinator", "localhost:1234"], "item 13"),

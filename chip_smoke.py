@@ -140,12 +140,36 @@ the dense routes were added, so that their times stay comparable):
      256x256 with about 20k Gaussians, on the card and on the CPU from the
      same state and draws: loss terms within rel 1e-4, every gradient
      within 2e-4 of its largest value; it launches no hand-written kernel;
- 15. the kernel table line (K1's and K2's launches include phases 10, 11,
-     12 and 13), then the last line.
+ 15. the multi-device path on the card (phase_multidevice, after phase
+     14): an NCCL process group of world size 1 and its ("g",) mesh; K1,
+     K2 and K3 at a band offset on phase 3's view render cut into 4 row
+     bands (tile0 = each band's first tile) against their plain versions
+     at the same tile0 (phase 2's and 4's tolerances), the bands put
+     together bit-equal to the whole frame; on phase 5's scene, 2 warm-up
+     and 10 timed fused steps, then 2 + 10 steps of a Trainer with
+     raster_backend="a2a" on the mesh (every render through the band sort,
+     the windows, the exchange, the (tile, depth) sort and K1/K2 at the
+     band offset, and back), capacities by probe_capacities: ms per step
+     beside the fused step's, K1/K2 launches (3 each a step), no pair
+     dropped, the largest window against dest_cap, peak memory; one
+     profiled a2a step; one a2a step on the row payload (3 K3 launches
+     each way); one main render through rasterize_a2a against rasterize on
+     the fused route (image atol 5e-5, gradients 2e-4 of the largest);
+     the sharded TSDF at 0.5 m on the a2a model's 6 train altitude maps
+     mirrored south equal to the unsharded one; a gspmd step with the mesh
+     against the one-device step (the same loss; gradients within 2e-4 of
+     the largest, beside two one-device steps' spread: the card's step is
+     not bitwise repeatable; the rotation's, rounding noise at the
+     isotropic init, reported only) and 3 views_per_step=2 steps on a
+     256^2 scene;
+ 16. the kernel table line (K1's and K2's launches include phases 10, 11,
+     12, 13 and 15; K3's phase 15's row-payload step), then the last
+     line.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import gc
 import json
 import os
@@ -2895,6 +2919,379 @@ def phase_safe_small(device):
                              f"{rel_grads}, launches {launches}")
 
 
+# ----------------------------------------------------------------------------
+# the multi-device path on one card: NCCL world size 1
+# ----------------------------------------------------------------------------
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def compare_band(sp, rows, gx, band, bands, g_out8):
+    """K1, K2 and K3 on row band `band` of `bands` of sp's frame at tile0 =
+    the band's first tile, against the plain versions at the same tile0:
+    K1 and K3 forward channels 0-4 within ATOL_CH, final_T within ATOL_T,
+    n_contrib exact (K3 bit-equal to K1); K2 per row within K2_ROW_TOL of
+    the row's largest value and bitwise deterministic, K3 backward bit-equal
+    to K2 (the band's rows only: the kernels write the rows of their
+    tiles). Returns (report, K1's out8, K2's rows, the band's row range)."""
+    import torch
+
+    from eogs2_tpu_torch.ops.fused_raster import (NF, fused_blend_bwd,
+                                                  fused_blend_bwd_plain,
+                                                  fused_blend_bwd_rows,
+                                                  fused_blend_fwd,
+                                                  fused_blend_fwd_plain,
+                                                  fused_blend_fwd_rows)
+
+    tpb = sp.tstart.shape[0] // bands
+    t0 = band * tpb
+    part = slice(t0, t0 + tpb)
+    ts, cn = sp.tstart[part].contiguous(), sp.cnt[part].contiguous()
+    go = g_out8[part].contiguous()
+    lo, hi = int(ts[0]), int(ts[-1]) + int(cn[-1])
+    k1 = fused_blend_fwd(sp.pay, ts, cn, gx, t0)
+    p1 = fused_blend_fwd_plain(sp.pay, ts, cn, gx, t0)
+    k3 = fused_blend_fwd_rows(rows.pay, ts, cn, gx, t0)
+    k2 = fused_blend_bwd(sp.pay, ts, cn, k1, go, gx, t0)[:, lo:hi]
+    k2_again = fused_blend_bwd(sp.pay, ts, cn, k1, go, gx, t0)[:, lo:hi]
+    p2 = fused_blend_bwd_plain(sp.pay, ts, cn, k1, go, gx, t0)[:, lo:hi]
+    k3b = fused_blend_bwd_rows(rows.pay, ts, cn, k1, go, gx, t0)[lo:hi, :NF]
+    torch.cuda.synchronize()
+    scale = p2.abs().amax(dim=1)
+    live = scale > 0
+    err_rows = (k2 - p2).abs().amax(dim=1) / scale.clamp_min(1e-30)
+    rep = dict(
+        band=band, tile0=t0, tiles=tpb, pairs=hi - lo,
+        k1_max_abs_err_ch0_4=float((k1[..., :5] - p1[..., :5]).abs().max()),
+        k1_max_abs_err_final_t=float((k1[..., 5] - p1[..., 5]).abs().max()),
+        k1_n_contrib_mismatches=int((k1[..., 6] != p1[..., 6]).sum()),
+        k3_fwd_bitwise_equal_k1=bool(torch.equal(k3, k1)),
+        k2_max_row_rel_err=float(err_rows[live].max()) if bool(live.any())
+        else 0.0,
+        k2_max_abs_err=float((k2 - p2).abs().max()),
+        k2_bitwise_deterministic=bool(torch.equal(k2, k2_again)),
+        k3_bwd_bitwise_equal_k2=bool(torch.equal(k3b.t(), k2)),
+        k1_ms=time_cuda(lambda: fused_blend_fwd(sp.pay, ts, cn, gx, t0), 10),
+        k2_ms=time_cuda(lambda: fused_blend_bwd(sp.pay, ts, cn, k1, go, gx,
+                                                t0), 10))
+    if not (rep["k1_max_abs_err_ch0_4"] <= ATOL_CH
+            and rep["k1_max_abs_err_final_t"] <= ATOL_T
+            and rep["k1_n_contrib_mismatches"] == 0
+            and rep["k3_fwd_bitwise_equal_k1"]
+            and rep["k2_max_row_rel_err"] <= K2_ROW_TOL
+            and rep["k2_bitwise_deterministic"]
+            and rep["k3_bwd_bitwise_equal_k2"]
+            and bool((k2[~live] == 0).all())
+            and bool(torch.isfinite(k1).all())
+            and bool(torch.isfinite(k2).all())):
+        raise AssertionError(f"K1/K2/K3 at a band offset disagree: {rep}")
+    return rep, k1, k2, (lo, hi)
+
+
+def phase_bands(device, bands=4, n=1_000_000, width=1024):
+    """K1/K2/K3 at a band offset on serve-1M-1024's view render: its sorted
+    ranges cut into `bands` row bands, each launched at tile0 = its first
+    tile and held against the plain versions (compare_band); the bands put
+    together bit-equal to the whole frame's K1 out8 and K2 rows."""
+    import torch
+
+    from eogs2_tpu_torch.ops.fused_raster import (fused_blend_bwd,
+                                                  fused_blend_fwd, sort_pairs)
+    from eogs2_tpu_torch.ops.projection import (compute_cov2d_direct,
+                                                preprocess_gaussians)
+    from eogs2_tpu_torch.renderer import gaussian_features
+
+    model, view, _, _ = serve_scene(n, width, seed=0, device=device)
+    with torch.no_grad():
+        feats = gaussian_features(model, view)
+        aff = view.resize_canvas(width, width).affine
+        cov2d = compute_cov2d_direct(model.get_scaling(), model.rotation, aff,
+                                     width, width)
+        prep = preprocess_gaussians(model.xyz, None, model.get_opacity(), aff,
+                                    width, width, cov2d=cov2d)
+        sp = sort_pairs(prep, feats, width, width, eogs=True)
+        rows = sort_pairs(prep, feats, width, width, eogs=True, rows=True)
+    del model, prep, cov2d, feats
+    gx = width // 16
+    whole = fused_blend_fwd(sp.pay, sp.tstart, sp.cnt, gx)
+    gen = torch.Generator(device=device).manual_seed(0)
+    g_out8 = torch.randn(whole.shape, generator=gen, device=device)
+    g_whole = fused_blend_bwd(sp.pay, sp.tstart, sp.cnt, whole, g_out8, gx)
+    reps, outs = [], []
+    g_bands = torch.zeros_like(g_whole)
+    for b in range(bands):
+        rep, k1, k2, (lo, hi) = compare_band(sp, rows, gx, b, bands, g_out8)
+        reps.append(rep)
+        outs.append(k1)
+        g_bands[:, lo:hi] = k2
+    torch.cuda.synchronize()
+    out = dict(bands_k1_bitwise_equal_whole=bool(torch.equal(
+        torch.cat(outs), whole)),
+        bands_k2_bitwise_equal_whole=bool(torch.equal(g_bands, g_whole)))
+    log(dict(phase="k1_k2_k3_at_band_offset", render="serve view",
+             width=width, height=width, pairs=int(sp.pay.shape[1]),
+             bands=reps, **out, **CARD))
+    if not all(out.values()):
+        raise AssertionError(f"the bands differ from the whole frame: {out}")
+    return reps
+
+
+def small_trainer(scene, device, mesh=None, backend="gspmd", **opt):
+    """A Trainer on a small scene, the sun and random camera from
+    iteration 1, the fused route with tile_cull."""
+    from eogs2_tpu_torch.rasterizer import RasterizeConfig
+    from eogs2_tpu_torch.train import Trainer
+
+    cfg = train_recipe(10)
+    for k, v in opt.items():
+        setattr(cfg.optimization, k, v)
+    return Trainer(cfg, scene, RasterizeConfig(binning_mode="fused",
+                                               tile_cull=True),
+                   device=device, mesh=mesh, raster_backend=backend).setup()
+
+
+def phase_multidevice(device, arrays, warmup=2, timed=10, band_n=1_000_000,
+                      band_width=1024, small_width=256, tsdf_vox=0.5):
+    """The multi-device path on one card (cell train-1M-1024-a2a): an NCCL
+    process group of world size 1 (a TCP rendezvous on a free local port;
+    no gloo and no CPU stand in), its ("g",) mesh; K1/K2/K3 at a band
+    offset (phase_bands); on phase 5's scene (rebuilt from `arrays`) the
+    fused step timed beside the a2a step (Trainer(mesh, raster_backend=
+    "a2a"): every render through rasterize_a2a, capacities sized by
+    probe_capacities), each `warmup` + `timed` steps, K1/K2 launches of the
+    a2a run, no pair dropped, the largest window against dest_cap, peak
+    memory, one profiled a2a step, one a2a step on the row payload (K3);
+    one main render's image and per-Gaussian gradients through
+    rasterize_a2a against rasterize on the fused route; a gspmd step with
+    the mesh against the one-device step and 3 views_per_step=2 steps on a
+    256^2 scene; the sharded TSDF on the a2a model's train altitude maps
+    mirrored south (south_maps) equal to the unsharded one. Returns the
+    band reports and the a2a run's launches."""
+    import torch
+    import torch.distributed as dist
+
+    from eogs2_tpu_torch.data.synthetic import (make_scene_arrays,
+                                                scene_from_arrays)
+    from eogs2_tpu_torch.eval import tsdf
+    from eogs2_tpu_torch.ops import fused_raster as fr
+    from eogs2_tpu_torch.parallel.distributed import init_distributed
+    from eogs2_tpu_torch.parallel.mesh import make_mesh
+    from eogs2_tpu_torch.parallel.sharded_raster import rasterize_a2a
+    from eogs2_tpu_torch.pipeline import render_view_full
+    from eogs2_tpu_torch.rasterizer import RasterizeConfig, rasterize
+    from eogs2_tpu_torch.renderer import gaussian_features
+    from eogs2_tpu_torch.train import Trainer, mean_metrics
+
+    t_phase = time.perf_counter()
+    init_distributed(f"tcp://127.0.0.1:{free_port()}", 1, 0, device=device)
+    try:
+        backend = dist.get_backend()
+        if device.type == "cuda" and backend != "nccl":
+            raise AssertionError(f"process group backend {backend}")
+        mesh = make_mesh(1)
+        bands = phase_bands(device, n=band_n, width=band_width)
+        gc.collect()
+
+        scene = scene_from_arrays(arrays, device=device)
+        rcfg = RasterizeConfig(binning_mode="fused", tile_cull=True)
+        runs = {}
+        for name in ("fused", "a2a"):
+            cfg = train_recipe(warmup + timed + 3)
+            t = time.perf_counter()
+            tr = Trainer(cfg, scene, rcfg, device=device,
+                         mesh=mesh if name == "a2a" else None,
+                         raster_backend="a2a" if name == "a2a" else "gspmd"
+                         ).setup()
+            probed = tr.probe_capacities() if name == "a2a" else None
+            torch.cuda.synchronize()
+            setup_s = time.perf_counter() - t
+            tr.train(warmup, progress=False)
+            torch.cuda.reset_peak_memory_stats()
+            fr.fused_blend_fwd.launches = 0
+            fr.fused_blend_bwd.launches = 0
+            ms, steps = timed_steps(tr, range(warmup + 1, warmup + timed + 1))
+            launches = (fr.fused_blend_fwd.launches,
+                        fr.fused_blend_bwd.launches)
+            peak = torch.cuda.max_memory_allocated() / 2**30
+            check_metrics(steps, name)
+            m = mean_metrics(steps)
+            runs[name] = dict(ms_per_step=statistics.median(ms), step_ms=ms,
+                              setup_s=setup_s, peak_mem_gib=peak,
+                              k1_launches=launches[0],
+                              k2_launches=launches[1])
+            if name == "fused":
+                del tr
+                gc.collect()
+                continue
+            if launches != (3 * timed, 3 * timed):
+                raise AssertionError(f"a2a launches {launches}, want "
+                                     f"{3 * timed} each")
+            dropped = max(int(x["dropped_pairs"]) for x in steps)
+            max_dest = max(int(x["max_dest_count"]) for x in steps)
+            if dropped or max_dest > tr.raster_cfg.dest_cap:
+                raise AssertionError(f"a2a dropped {dropped} pairs (window "
+                                     f"{max_dest}, dest_cap "
+                                     f"{tr.raster_cfg.dest_cap})")
+            runs[name].update(
+                dest_cap=probed.dest_cap, tile_capacity=probed.tile_capacity,
+                max_tiles_per_gaussian=probed.max_tiles_per_gaussian,
+                dropped_pairs=dropped, max_dest_count=max_dest,
+                max_tile_count=max(int(x["max_tile"]) for x in steps),
+                num_pairs_main=m["num_pairs"], loss=m["loss"])
+        a2a_tr = tr
+        log(dict(phase="multidevice_step", cell="train-1M-1024-a2a",
+                 backend=backend, world_size=dist.get_world_size(),
+                 init_gaussians=len(scene.init_xyz),
+                 recipe="baseogs, sun and random camera from iteration 1",
+                 config="fused, tile_cull; a2a on a 1-rank mesh",
+                 a2a_over_fused=runs["a2a"]["ms_per_step"]
+                 / runs["fused"]["ms_per_step"], **runs, **CARD))
+        log(dict(phase="multidevice_profile", backend="a2a",
+                 **profile_run(lambda: a2a_tr.train_step(warmup + timed + 1)),
+                 **CARD))
+
+        # K3: one a2a step on the row payload
+        for k in ("fused_blend_fwd", "fused_blend_bwd",
+                  "fused_blend_fwd_rows", "fused_blend_bwd_rows"):
+            getattr(fr, k).launches = 0
+        a2a_tr.set_raster_cfg(dataclasses.replace(a2a_tr.raster_cfg,
+                                                  payload_col=False))
+        check_metrics([a2a_tr.train_step(warmup + timed + 2)], "a2a K3")
+        torch.cuda.synchronize()
+        k3_launches = (fr.fused_blend_fwd_rows.launches,
+                       fr.fused_blend_bwd_rows.launches)
+        if k3_launches != (3, 3) or fr.fused_blend_fwd.launches \
+                or fr.fused_blend_bwd.launches:
+            raise AssertionError(f"a2a row-payload step: K3 {k3_launches}, "
+                                 f"K1 {fr.fused_blend_fwd.launches}")
+        a2a_tr.set_raster_cfg(dataclasses.replace(a2a_tr.raster_cfg,
+                                                  payload_col=True))
+
+        # one main render: rasterize_a2a against rasterize (fused)
+        model = a2a_tr.model
+        cam = scene.train_views[0].camera
+        w = cam.width
+        inputs = [x.detach().clone().requires_grad_(True) for x in
+                  (model.xyz, model.get_scaling(), model.rotation,
+                   model.get_opacity())]
+        with torch.no_grad():
+            feats = gaussian_features(model, cam)
+        feats.requires_grad_(True)
+        bg = torch.tensor([0.3, 0.5, 0.2, -1.0, 0.0], device=device)
+        aff = cam.resize_canvas(w, w).affine
+        gen = torch.Generator(device=device).manual_seed(1)
+        cot = torch.rand((5, w, w), generator=gen, device=device)
+        cfg_r = dataclasses.replace(a2a_tr.raster_cfg, eogs_features=False)
+        grads, imgs = {}, {}
+        for route in ("a2a", "fused"):
+            for x in inputs + [feats]:
+                x.grad = None
+            if route == "a2a":
+                out = rasterize_a2a(mesh, *inputs, feats, aff, bg, w, w,
+                                    cfg_r, alive=model.alive)
+            else:
+                out = rasterize(*inputs, feats, aff, bg, w, w, cfg_r,
+                                alive=model.alive)
+            (out.image * cot).sum().backward()
+            imgs[route] = out.image.detach()
+            grads[route] = [x.grad.detach().clone()
+                            for x in inputs + [feats]]
+        torch.cuda.synchronize()
+        img_err = float((imgs["a2a"] - imgs["fused"]).abs().max())
+        grad_err = max(float((a - b).abs().max() / b.abs().max()
+                             .clamp_min(1e-30))
+                       for a, b in zip(grads["a2a"], grads["fused"]))
+        render = dict(image_max_abs_err=img_err,
+                      grad_max_rel_err=grad_err,
+                      tolerance="image atol 5e-5, gradients 2e-4 of the "
+                                "largest (tests/test_sharded.py, "
+                                "tests/test_golden.py)",
+                      image_bitwise_equal=bool(torch.equal(imgs["a2a"],
+                                                           imgs["fused"])))
+        del grads, imgs, inputs, feats, cot
+        if not (img_err <= 5e-5 and grad_err <= 2e-4):
+            raise AssertionError(f"a2a render against fused: {render}")
+
+        # the sharded TSDF on the a2a model's train altitude maps, south
+        md0 = arrays.metadatas[0]["model"]
+        maps = {}
+        for v in scene.train_views:
+            alt = render_view_full(a2a_tr.model, v.camera,
+                                   a2a_tr.raster_cfg)["altitude"]
+            a = v.camera.affine.detach().cpu().numpy()
+            maps[v.name] = (a[:, :3], a[:, 3], np.asarray(alt, np.float32))
+        maps = south_maps(maps)
+        views = tsdf.TsdfViews(*(torch.as_tensor(np.stack(
+            [m[k] for m in maps.values()]).astype(np.float32), device=device)
+            for k in range(3)))
+        vb = np.stack([np.asarray(md0["min_world"]),
+                       np.asarray(md0["max_world"])], axis=1) * md0["scale"]
+        vols = []
+        for m in (None, mesh):
+            vol = tsdf.TSDFVolume(vb, tsdf_vox, 4.0, mesh=m, device=device)
+            vol.integrate_views(views, md0["scale"])
+            vol.apply_prior()
+            vols.append(vol)
+        tsdf_rep = dict(
+            voxels=int(np.prod(vols[0].shape)),
+            weighted_share=float((vols[0].weight > 0).float().mean()),
+            sharded_bitwise_equal=bool(
+                torch.equal(vols[0].tsdf, vols[1].tsdf)
+                and torch.equal(vols[0].weight, vols[1].weight)))
+        del vols, views, maps, a2a_tr, tr, model
+        gc.collect()
+        if not tsdf_rep["sharded_bitwise_equal"] or \
+                tsdf_rep["weighted_share"] <= 0.1:
+            raise AssertionError(f"sharded TSDF: {tsdf_rep}")
+
+        # gspmd with the mesh, and views_per_step = 2, on a 256^2 scene
+        small = scene_from_arrays(make_scene_arrays(
+            n_views=5, width=small_width, height=small_width, hf_res=256,
+            n_buildings=6,
+            seed=3, scale=25.0), device=device)
+        # the card's step is not bitwise repeatable (the resample's
+        # backward adds atomically), so the gradients are held at the step
+        # tolerance (2e-4 of the largest) beside two plain steps' spread;
+        # not the rotation's: at the isotropic init it is rounding noise
+        plain, again, meshed = (small_trainer(small, device, mesh=m)
+                                for m in (None, None, mesh))
+        steps = [t.train_step(1) for t in (plain, again, meshed)]
+
+        def grad_diff(a, b):
+            return {f: float((getattr(a.model, f).grad
+                              - getattr(b.model, f).grad).abs().max()
+                             / getattr(b.model, f).grad.abs().max()
+                             .clamp_min(1e-30)) for f in FIELDS}
+
+        gspmd_err, spread = grad_diff(meshed, plain), grad_diff(again, plain)
+        loss_err = abs(float(steps[2]["loss"]) - float(steps[0]["loss"]))
+        vps = small_trainer(small, device, views_per_step=2)
+        vps_ms, vps_steps = timed_steps(vps, range(1, 4))
+        check_metrics(vps_steps, "views_per_step=2")
+        others = dict(gspmd_mesh_step_grad_rel_err=gspmd_err,
+                      plain_steps_grad_rel_spread=spread,
+                      gspmd_mesh_step_loss_abs_err=loss_err,
+                      views_per_step_2_ms=vps_ms,
+                      views_per_step_2_loss=[float(m["loss"])
+                                             for m in vps_steps])
+        if loss_err > 1e-6 * abs(float(steps[0]["loss"])) or max(
+                v for f, v in gspmd_err.items() if f != "rotation") \
+                > K2_ROW_TOL:
+            raise AssertionError(f"gspmd step with the mesh: {others}")
+        log(dict(phase="multidevice_checks", render_a2a_vs_fused=render,
+                 tsdf_south_sharded=tsdf_rep, **others,
+                 phase_s=time.perf_counter() - t_phase, **CARD))
+        return bands, runs["a2a"], k3_launches
+    finally:
+        dist.destroy_process_group()
+
+
 def main() -> int:
     import torch
 
@@ -2936,11 +3333,20 @@ def main() -> int:
     gc.collect()
     eplus_k1, eplus_k2, eplus_k1_rep, eplus_k2_rep = phase_eogsplus(device,
                                                                    arrays)
-    del arrays
     gc.collect()
     k4_serve_launches, k4_serve, k4_serve_at = phase_serve_dense(device)
     full_k1, full_k2, full_k1_rep, full_k2_rep = phase_full_eval(device)
     phase_safe_small(device)
+    bands, a2a, k3_a2a = phase_multidevice(device, arrays)
+    del arrays
+    gc.collect()
+    tile0 = dict(
+        tile0_bands=[(b["tile0"], b["tiles"]) for b in bands],
+        tile0_k1_max_abs_err=max(max(b["k1_max_abs_err_ch0_4"],
+                                     b["k1_max_abs_err_final_t"])
+                                 for b in bands),
+        tile0_k2_max_row_rel_err=max(b["k2_max_row_rel_err"] for b in bands),
+        a2a_step_launches=a2a["k1_launches"])
 
     view = per_render["view"]
 
@@ -2960,7 +3366,8 @@ def main() -> int:
     log({"kernels": [
         entry("fused_blend_fwd (K1)", "fused_blend_fwd.cu",
               "fused_raster.py:532", serve_launches + k1_launches
-              + recipe_k1 + cli_k1 + eplus_k1 + full_k1, view,
+              + recipe_k1 + cli_k1 + eplus_k1 + full_k1
+              + a2a["k1_launches"], view,
               max_abs_err=max(max(r["max_abs_err_ch0_4"],
                                   r["max_abs_err_final_t"])
                               for r in (*per_render.values(),
@@ -2970,10 +3377,10 @@ def main() -> int:
                                        for r in (*per_render.values(),
                                                  *k1_at.values(),
                                                  eplus_k1_rep, full_k1_rep)),
-              **per_step(k1_at)),
+              **per_step(k1_at), **tile0),
         entry("fused_blend_bwd (K2)", "fused_blend_bwd.cu",
               "fused_raster.py:614", k2_launches + recipe_k2 + cli_k2
-              + eplus_k2 + full_k2, k2,
+              + eplus_k2 + full_k2 + a2a["k2_launches"], k2,
               max_abs_err=max(r["max_abs_err"]
                               for r in (*k2_at.values(), eplus_k2_rep,
                                         full_k2_rep)),
@@ -2981,17 +3388,23 @@ def main() -> int:
                                                   for r in (*k2_at.values(),
                                                             eplus_k2_rep,
                                                             full_k2_rep))),
-              **per_step(k2_at)),
+              **per_step(k2_at), **tile0),
         entry("fused_blend_fwd_rows (K3 forward)", "fused_blend_fwd.cu",
-              "fused_raster.py:236", k3_launches["k3_fwd"], k3_fwd,
+              "fused_raster.py:236", k3_launches["k3_fwd"] + k3_a2a[0],
+              k3_fwd,
               max_abs_err=max(k3["max_abs_err_ch0_4"],
                               k3["max_abs_err_final_t"], k3_small_err),
-              bitwise_equal_k1=k3["fwd_bitwise_equal_k1"]),
+              bitwise_equal_k1=k3["fwd_bitwise_equal_k1"]
+              and all(b["k3_fwd_bitwise_equal_k1"] for b in bands),
+              tile0_bands=tile0["tile0_bands"], a2a_step_launches=k3_a2a[0]),
         entry("fused_blend_bwd_rows (K3 backward)", "fused_blend_bwd.cu",
-              "fused_raster.py:317", k3_launches["k3_bwd"], k3_bwd,
+              "fused_raster.py:317", k3_launches["k3_bwd"] + k3_a2a[1],
+              k3_bwd,
               max_abs_err=k2["max_abs_err"],
               max_row_rel_err=k2["max_row_rel_err"],
-              bitwise_equal_k2=k3["bwd_bitwise_equal_k2"]),
+              bitwise_equal_k2=k3["bwd_bitwise_equal_k2"]
+              and all(b["k3_bwd_bitwise_equal_k2"] for b in bands),
+              tile0_bands=tile0["tile0_bands"], a2a_step_launches=k3_a2a[1]),
         entry("blend_forward (K4 forward)", "blend_tiles_fwd.cu",
               "blend_pallas.py:134", k4f_launches + k4_serve_launches,
               k4f_at["main"],

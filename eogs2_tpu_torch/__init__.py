@@ -18,8 +18,11 @@ flow bake, early stopping, hooks, reports, model saves and checkpoints;
 surface: the CLI (``cli.py``),
 ``checkpoint.py``, ``render_artifacts.py``, ``video.py``, ``flow.py``,
 ``observability.py`` and the file formats of ``io/`` (TIFF, PNG and PLY
-in numpy, so neither imageio nor Pillow is needed). ROADMAP.md lists what
-is left; those parts raise NotImplementedError naming their item.
+in numpy, so neither imageio nor Pillow is needed); and the multi-device
+path (``parallel/``: the process group and mesh, the sharded Gaussian
+state, the all_to_all pair-exchange rasterizer with K1/K2/K3 at a band
+offset; sharded and multi-view training, the sharded TSDF, the CLI's
+``--n-devices`` and multi-host options). ROADMAP.md lists what is left.
 """
 
 __version__ = "0.1.0"

@@ -19,10 +19,21 @@ without it; ``--device cpu`` runs on the CPU). make-synthetic and eval-dsm
 compute on the host only, as in JAX; tsdf fuses on the device and extracts
 the mesh on the host.
 
-Not ported yet, and raising NotImplementedError naming the ROADMAP item:
-the multi-device options ``--n-devices`` > 1, ``--raster-backend a2a``,
-``--coordinator``/``--num-processes``/``--process-id`` and
-``--views-per-step`` > 1 (item 13). Every preset trains: ``eogsplus`` and
+Several devices (train, full-eval, tsdf): ``--n-devices N`` > 1 starts N
+local ranks (torch.multiprocessing, a file rendezvous in a temporary
+directory), one per CUDA card with an NCCL process group, or N gloo ranks on
+the CPU with ``--device cpu``; more ranks than visible cards raises.
+``--coordinator host:port`` (or any torch.distributed init URL) with
+``--num-processes`` and ``--process-id`` joins a group spanning hosts, one
+process per card (or the EOGS2_COORDINATOR / EOGS2_NUM_PROCESSES /
+EOGS2_PROCESS_ID variables). In a group, train shards the Gaussians over a
+("g",) mesh of all ranks and renders with ``--raster-backend`` (``gspmd``:
+the shards joined on every rank; ``a2a``: the all_to_all pair exchange,
+which needs the group, as JAX's needs a mesh); tsdf shards the voxel axis;
+rank 0 writes the model, the checkpoints and the outputs, the other ranks
+log under ``<model-path>/proc<rank>``, as JAX's CLI does.
+``--views-per-step`` batches views per optimizer step. Every preset
+trains: ``eogsplus`` and
 ``optical_flow`` (3PAN, flow matching) load the scene's PAN cameras, from
 ``--images-pan`` (default ``<scene>/images``), as JAX's CLI does.
 ``--steps-per-dispatch`` other than 1 raises too: it batches steps into one
@@ -46,11 +57,6 @@ import sys
 import numpy as np
 
 
-def _unported(what: str, item: int):
-    raise NotImplementedError(
-        f"{what} is not ported yet (ROADMAP Queue 1 item {item})")
-
-
 def _load(args, load_pan=None, load_msi=None):
     from eogs2_tpu_torch.scene import load_scene
 
@@ -72,17 +78,14 @@ def _load(args, load_pan=None, load_msi=None):
 
 
 def _check_train_options(args):
-    """Raise for the train options whose code is not ported."""
-    if args.n_devices > 1:
-        _unported(f"--n-devices {args.n_devices} (multi-chip training)", 13)
-    if args.raster_backend != "gspmd":
-        _unported(f"--raster-backend {args.raster_backend}", 13)
-    if (args.coordinator is not None or args.num_processes is not None
-            or args.process_id is not None):
-        _unported("multi-host training (--coordinator, --num-processes, "
-                  "--process-id)", 13)
-    if args.views_per_step > 1:
-        _unported(f"--views-per-step {args.views_per_step}", 13)
+    """Raise for the train options that cannot run as given (JAX asserts
+    the first two)."""
+    if args.raster_backend == "a2a" and not _in_group():
+        raise ValueError("--raster-backend a2a needs a mesh: --n-devices "
+                         "> 1 or --coordinator")
+    if args.raster_backend == "a2a" and args.views_per_step > 1:
+        raise ValueError("--raster-backend a2a shards the image over the "
+                         "mesh: --views-per-step must be 1")
     if args.steps_per_dispatch != 1:
         raise NotImplementedError(
             f"--steps-per-dispatch {args.steps_per_dispatch}: several steps "
@@ -90,7 +93,42 @@ def _check_train_options(args):
             f"port (ROADMAP \"Deliberate differences\")")
 
 
+def _in_group() -> bool:
+    import torch.distributed as dist
+
+    return dist.is_available() and dist.is_initialized()
+
+
+def _join_group(args):
+    """The mesh of the process group this process joins (the coordinator
+    flags or variables), or None without one. Every rank joins one ("g",)
+    mesh of all ranks."""
+    from eogs2_tpu_torch.parallel.distributed import (init_distributed,
+                                                      is_coordinator)
+    from eogs2_tpu_torch.parallel.mesh import make_mesh
+
+    if not init_distributed(args.coordinator, args.num_processes,
+                            args.process_id, device=args.device):
+        return None
+    mesh = make_mesh(None, axes=("g",))
+    if is_coordinator():
+        print(f"mesh {dict(zip(mesh.mesh_dim_names, mesh.shape))} "
+              f"({mesh.size()} ranks, {args.device.type})", flush=True)
+    return mesh
+
+
+def _barrier():
+    import torch.distributed as dist
+
+    if _in_group():
+        dist.barrier()
+
+
 def cmd_train(args):
+    from eogs2_tpu_torch.parallel.distributed import (group_rank,
+                                                      is_coordinator)
+
+    mesh = _join_group(args)
     _check_train_options(args)
     from eogs2_tpu_torch.config import PRESETS
     from eogs2_tpu_torch.eval.mae import MaeComputer
@@ -124,14 +162,20 @@ def cmd_train(args):
         cfg.model.opacity_init_value = float(args.opacity_init)
     if args.views_per_step:
         cfg.optimization.views_per_step = args.views_per_step
-    tr = Trainer(cfg=cfg, scene=scene, raster_cfg=rcfg,
-                 device=args.device).setup()
+    tr = Trainer(cfg=cfg, scene=scene, raster_cfg=rcfg, device=args.device,
+                 mesh=mesh, raster_backend=args.raster_backend).setup()
+    if args.raster_backend == "a2a":
+        tr.probe_capacities()
     if args.opacity_init == "auto":
         tr.calibrate_opacity_init()
     if args.start_checkpoint:
         it0 = tr.restore(args.start_checkpoint)
         print(f"restored checkpoint at iteration {it0}")
 
+    if not is_coordinator():
+        # every rank runs the same loop; rank 0 owns the run directory
+        args.model_path = os.path.join(args.model_path,
+                                       f"proc{group_rank(mesh.get_group())}")
     logger = MetricsLogger(args.model_path)
     logger.save_config({"preset": args.preset, "scene_dir": args.scene_dir,
                         "model": cfg.model, "optimization": cfg.optimization})
@@ -241,6 +285,7 @@ def cmd_eval_dsm(args):
 def cmd_tsdf(args):
     from eogs2_tpu_torch.eval.tsdf import run_tsdf_cli
 
+    args.mesh = _join_group(args)
     return run_tsdf_cli(args)
 
 
@@ -250,11 +295,17 @@ def cmd_full_eval(args):
     from eogs2_tpu_torch.eval.mae import MaeComputer
     from eogs2_tpu_torch.scene import load_scene
 
+    from eogs2_tpu_torch.parallel.distributed import is_coordinator
+
+    model_path = args.model_path
     rc = cmd_train(args)
     if rc:
         return rc
+    args.model_path = model_path  # a rank's own log dir is not the model's
     args.iteration = -1
-    rc = cmd_render(args)
+    if is_coordinator():  # rank 0 renders; the group waits for its maps
+        rc = cmd_render(args)
+    _barrier()
     if rc:
         return rc
     pc_root = os.path.join(args.model_path, "point_cloud")
@@ -267,15 +318,16 @@ def cmd_full_eval(args):
         sc = load_scene(args.scene_dir, images_msi_path=None, eval_split=True,
                         target_density=0.001, device=args.device)
         mc = MaeComputer.from_synthetic(args.scene_dir, scale=sc.scene_scale)
-    if mc is not None and os.path.exists(pred):
+    if mc is not None and os.path.exists(pred) and is_coordinator():
         mae, _, _ = mc.compute_mae_from_path(pred)
         print(json.dumps({"stage": "eval_dsm", "mae": mae}))
     args.vox_size = 0.5
     args.trunc_margin_fact = 4.0
     rc = cmd_tsdf(args)
+    _barrier()
     tsdf_pred = os.path.join(args.model_path, "test_opNone", f"ours_{it}",
                              "tsdf", "dsm.tif")
-    if mc is not None and os.path.exists(tsdf_pred):
+    if mc is not None and os.path.exists(tsdf_pred) and is_coordinator():
         mae, _, _ = mc.compute_mae_from_path(tsdf_pred)
         print(json.dumps({"stage": "eval_dsm_tsdf", "mae": mae}))
     return rc
@@ -334,19 +386,28 @@ def build_parser():
         sp.add_argument("--start-checkpoint", default="")
         sp.add_argument("--checkpoint-every", type=int, default=0)
         sp.add_argument("--n-devices", type=int, default=1,
-                        help="> 1 is not ported (ROADMAP Queue 1 item 13)")
+                        help="local ranks to start: one per CUDA card "
+                             "(NCCL), or gloo ranks with --device cpu")
         sp.add_argument("--raster-backend", default="gspmd",
                         choices=["gspmd", "a2a"],
-                        help="a2a is not ported (ROADMAP Queue 1 item 13)")
+                        help="multi-device render path: the one-device "
+                             "step on the joined shards, or the explicit "
+                             "all_to_all pair-exchange rasterizer (needs "
+                             "--n-devices > 1 or --coordinator). a2a "
+                             "shards the image over the mesh, so it "
+                             "excludes --views-per-step > 1")
+        # multi-host: pass all three on every process, or set
+        # EOGS2_COORDINATOR / _NUM_PROCESSES / _PROCESS_ID
         sp.add_argument("--coordinator", default=None,
-                        help="multi-host; not ported (ROADMAP Queue 1 item 13)")
+                        help="host:port of rank 0 (or a torch.distributed "
+                             "init URL): joins a process group")
         sp.add_argument("--num-processes", type=int, default=None)
         sp.add_argument("--process-id", type=int, default=None)
         sp.add_argument("--steps-per-dispatch", type=int, default=1,
                         help="a TPU dispatch knob; only 1 here")
         sp.add_argument("--views-per-step", type=int, default=0,
-                        help="> 1 is not ported (ROADMAP Queue 1 item 13); "
-                             "0 = preset default")
+                        help="cameras per optimizer step (their losses "
+                             "summed); 0 = preset default")
         sp.add_argument(
             "--raster-mode", default="safe",
             choices=["safe", "fast", "fused"],
@@ -420,13 +481,56 @@ def build_parser():
     return p
 
 
+def _local_rank(rank: int, argv, n: int, url: str):
+    """One local rank of ``--n-devices``: the command again, joining the
+    group at ``url`` as rank ``rank`` of ``n``."""
+    import torch.distributed as dist
+
+    try:
+        rc = main(list(argv) + ["--coordinator", url, "--num-processes",
+                                str(n), "--process-id", str(rank)])
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    if rc:
+        raise SystemExit(rc)
+
+
+def _start_local_ranks(args, argv) -> bool:
+    """``--n-devices N`` > 1 without a coordinator: run the command in N
+    local ranks and return True once all have finished."""
+    n = getattr(args, "n_devices", 1)
+    if n <= 1 or args.coordinator or os.environ.get("EOGS2_COORDINATOR"):
+        return False
+    import shutil
+    import tempfile
+
+    import torch
+    import torch.multiprocessing as mp
+
+    if args.device.type == "cuda" and n > torch.cuda.device_count():
+        raise ValueError(f"--n-devices {n} needs {n} CUDA devices; "
+                         f"{torch.cuda.device_count()} visible")
+    rdv = tempfile.mkdtemp(prefix="eogs2_rendezvous_")
+    try:
+        mp.spawn(_local_rank, args=(argv, n, f"file://{rdv}/group"),
+                 nprocs=n)
+    finally:
+        shutil.rmtree(rdv, ignore_errors=True)
+    return True
+
+
 def main(argv=None):
     from eogs2_tpu_torch.device import resolve_device
 
+    argv = sys.argv[1:] if argv is None else list(argv)
     args = build_parser().parse_args(argv)
     # every subcommand resolves its device first, so that without a card
     # and without --device each one fails the same way before any work
     args.device = resolve_device(args.device)
+    if args.fn in (cmd_train, cmd_full_eval, cmd_tsdf) and \
+            _start_local_ranks(args, argv):
+        return 0
     return args.fn(args)
 
 

@@ -100,6 +100,7 @@ __global__ void __launch_bounds__(NT)
 fused_blend_bwd_kernel(const float* __restrict__ pay, long long stride,
                        const int* __restrict__ tstart,
                        const int* __restrict__ cnt, int grid_x,
+                       int tile0,
                        const float* __restrict__ out8,
                        const float* __restrict__ gout8,
                        float* __restrict__ gpay) {
@@ -115,8 +116,11 @@ fused_blend_bwd_kernel(const float* __restrict__ pay, long long stride,
   const int warp = threadIdx.x >> 5;
   const int2 lp = thread_pixel(threadIdx.x);
   const int pix0 = lp.y * TILE + lp.x;  // this thread's first pixel in the tile
-  const float px0 = (float)((tile % grid_x) * TILE + lp.x);
-  const float py = (float)((tile / grid_x) * TILE + lp.y);
+  // the pixel origin is that of global tile tile0 + tile (tile0 = 0 on the
+  // whole frame; a row band's first tile on the multi-device path)
+  const int gtile = tile0 + tile;
+  const float px0 = (float)((gtile % grid_x) * TILE + lp.x);
+  const float py = (float)((gtile / grid_x) * TILE + lp.y);
   const long long start = tstart[tile];
   const int n = cnt[tile];
 
@@ -291,11 +295,11 @@ fused_blend_bwd_kernel(const float* __restrict__ pay, long long stride,
 
 template <bool ROWS>
 int launch(const float* pay, long long stride, const int* tstart,
-           const int* cnt, int n_tiles, int grid_x, const float* out8,
-           const float* gout8, float* gpay, void* stream) {
+           const int* cnt, int n_tiles, int grid_x, int tile0,
+           const float* out8, const float* gout8, float* gpay, void* stream) {
   if (n_tiles > 0) {
     fused_blend_bwd_kernel<ROWS><<<n_tiles, NT, 0, (cudaStream_t)stream>>>(
-            pay, stride, tstart, cnt, grid_x, out8, gout8, gpay);
+            pay, stride, tstart, cnt, grid_x, tile0, out8, gout8, gpay);
   }
   return (int)cudaGetLastError();
 }
@@ -303,23 +307,25 @@ int launch(const float* pay, long long stride, const int* tstart,
 }  // namespace
 
 // K2. pay, gpay [11, stride] f32; tstart, cnt [n_tiles] i32; out8, gout8
-// [n_tiles, 256, 8] f32. Launches on `stream`; returns cudaGetLastError()
-// (0 on success).
+// [n_tiles, 256, 8] f32. Local tile t is global tile tile0 + t of a frame
+// grid_x tiles wide. Launches on `stream`; returns cudaGetLastError() (0 on
+// success).
 extern "C" int eogs2_fused_blend_bwd(const float* pay, long long stride,
                                      const int* tstart, const int* cnt,
-                                     int n_tiles, int grid_x,
+                                     int n_tiles, int grid_x, int tile0,
                                      const float* out8, const float* gout8,
                                      float* gpay, void* stream) {
-  return launch<false>(pay, stride, tstart, cnt, n_tiles, grid_x, out8, gout8,
-                       gpay, stream);
+  return launch<false>(pay, stride, tstart, cnt, n_tiles, grid_x, tile0, out8,
+                       gout8, gpay, stream);
 }
 
 // K3. pay, gpay [P, 16] f32 (one row per sorted pair); otherwise as K2.
 extern "C" int eogs2_fused_blend_bwd_rows(const float* pay, const int* tstart,
                                           const int* cnt, int n_tiles,
-                                          int grid_x, const float* out8,
+                                          int grid_x, int tile0,
+                                          const float* out8,
                                           const float* gout8, float* gpay,
                                           void* stream) {
-  return launch<true>(pay, 0, tstart, cnt, n_tiles, grid_x, out8, gout8, gpay,
-                      stream);
+  return launch<true>(pay, 0, tstart, cnt, n_tiles, grid_x, tile0, out8,
+                      gout8, gpay, stream);
 }

@@ -94,13 +94,17 @@ __global__ void __launch_bounds__(NT)
 fused_blend_fwd_kernel(const float* __restrict__ pay, long long stride,
                        const int* __restrict__ tstart,
                        const int* __restrict__ cnt, int grid_x,
+                       int tile0,
                        float* __restrict__ out8) {
   __shared__ Pair batch[2][BATCH];
   const int tile = blockIdx.x;
   const int2 lp = thread_pixel(threadIdx.x);
   const int pix0 = lp.y * TILE + lp.x;  // this thread's first pixel in the tile
-  const float px0 = (float)((tile % grid_x) * TILE + lp.x);
-  const float py = (float)((tile / grid_x) * TILE + lp.y);
+  // the pixel origin is that of global tile tile0 + tile (tile0 = 0 on the
+  // whole frame; a row band's first tile on the multi-device path)
+  const int gtile = tile0 + tile;
+  const float px0 = (float)((gtile % grid_x) * TILE + lp.x);
+  const float py = (float)((gtile / grid_x) * TILE + lp.y);
   const long long start = tstart[tile];
   const int n = cnt[tile];
 
@@ -188,11 +192,11 @@ fused_blend_fwd_kernel(const float* __restrict__ pay, long long stride,
 
 template <bool ROWS>
 int launch(const float* pay, long long stride, const int* tstart,
-           const int* cnt, int n_tiles, int grid_x, float* out8,
+           const int* cnt, int n_tiles, int grid_x, int tile0, float* out8,
            void* stream) {
   if (n_tiles > 0) {
     fused_blend_fwd_kernel<ROWS><<<n_tiles, NT, 0, (cudaStream_t)stream>>>(
-            pay, stride, tstart, cnt, grid_x, out8);
+            pay, stride, tstart, cnt, grid_x, tile0, out8);
   }
   return (int)cudaGetLastError();
 }
@@ -200,18 +204,21 @@ int launch(const float* pay, long long stride, const int* tstart,
 }  // namespace
 
 // K1. pay [11, stride] f32; tstart, cnt [n_tiles] i32; out8 [n_tiles, 256, 8]
-// f32. Launches on `stream`; returns cudaGetLastError() (0 on success).
+// f32. Local tile t is global tile tile0 + t of a frame grid_x tiles wide.
+// Launches on `stream`; returns cudaGetLastError() (0 on success).
 extern "C" int eogs2_fused_blend_fwd(const float* pay, long long stride,
                                      const int* tstart, const int* cnt,
-                                     int n_tiles, int grid_x, float* out8,
-                                     void* stream) {
-  return launch<false>(pay, stride, tstart, cnt, n_tiles, grid_x, out8, stream);
+                                     int n_tiles, int grid_x, int tile0,
+                                     float* out8, void* stream) {
+  return launch<false>(pay, stride, tstart, cnt, n_tiles, grid_x, tile0, out8,
+                       stream);
 }
 
 // K3. pay [P, 16] f32 (one row per sorted pair); otherwise as K1.
 extern "C" int eogs2_fused_blend_fwd_rows(const float* pay, const int* tstart,
                                           const int* cnt, int n_tiles,
-                                          int grid_x, float* out8,
+                                          int grid_x, int tile0, float* out8,
                                           void* stream) {
-  return launch<true>(pay, 0, tstart, cnt, n_tiles, grid_x, out8, stream);
+  return launch<true>(pay, 0, tstart, cnt, n_tiles, grid_x, tile0, out8,
+                      stream);
 }

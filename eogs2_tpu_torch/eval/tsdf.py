@@ -25,8 +25,12 @@ host (torch.linalg.inv differs by device), once per view and fusion, and
 no division is by a Python number (CUDA multiplies by its reciprocal
 there).
 
-Not ported: the voxel axis sharded over several devices (``mesh=``, the
-CLI's ``--n-devices`` > 1), ROADMAP Queue 1 item 13.
+Several devices: with ``mesh=`` (parallel.mesh.make_mesh; the CLI's
+``--n-devices`` or ``--coordinator``) each slab's flat voxel axis is split
+over the mesh's ranks, padded to a rank multiple with neutral rows (tsdf 1,
+weight 0), and the parts are all_gathered: the numbers are the unsharded
+ones, bit for bit (a voxel's value does not depend on its neighbours in the
+call), as JAX's sharded integration gives its single-chip ones.
 
 NOTE the reference uses a pixel-center UV convention here —
 (idx + 0.5)/size * 2 - 1 — that differs from the rasterizer's ndc2Pix; we
@@ -168,12 +172,9 @@ class TSDFVolume:
         ``slab_voxels`` bounds peak memory: integration walks the flat
         voxel axis in slabs of this many voxels (the last one shorter), so
         the transient [N]-sized sample_sdf tensors are O(slab) instead of
-        O(Nvox). ``mesh`` (JAX's device mesh) is not ported: ROADMAP Queue
-        1 item 13."""
-        if mesh is not None:
-            raise NotImplementedError(
-                "TSDFVolume(mesh=...): sharded TSDF integration is not "
-                "ported yet (ROADMAP Queue 1 item 13)")
+        O(Nvox). ``mesh`` (a DeviceMesh over the process group) splits
+        each slab's voxels over its ranks (module docstring)."""
+        self.mesh = mesh
         self.device = resolve_device(device)
         self.vox_size = float(vox_size)
         self.trunc = trunc_margin_fact * vox_size
@@ -215,11 +216,38 @@ class TSDFVolume:
         slab = max(1, min(self.slab_voxels, n))
         for lo in range(0, n, slab):
             hi = min(lo + slab, n)
-            tsdf_f[lo:hi], weight_f[lo:hi] = _integrate_slab(
+            tsdf_f[lo:hi], weight_f[lo:hi] = self._integrate_part(
                 views, ainvs, w_imgs, self.world_coords[lo:hi], tsdf_f[lo:hi],
-                weight_f[lo:hi], float(model_scale), self.trunc)
+                weight_f[lo:hi], float(model_scale))
         self.tsdf = tsdf_f.reshape(self.shape)
         self.weight = weight_f.reshape(self.shape)
+
+    def _integrate_part(self, views, ainvs, w_imgs, wc, t, w, model_scale):
+        """_integrate_slab of one slab, its voxels split over the mesh's
+        ranks: each integrates its contiguous part (the slab padded with
+        neutral rows to a rank multiple) and the parts are gathered."""
+        if self.mesh is None:
+            return _integrate_slab(views, ainvs, w_imgs, wc, t, w,
+                                   model_scale, self.trunc)
+        import torch.distributed as dist
+
+        from eogs2_tpu_torch.parallel.distributed import all_gather_cat
+
+        group = self.mesh.get_group() if self.mesh.ndim == 1 \
+            else dist.group.WORLD
+        ranks, rank = dist.get_world_size(group), dist.get_rank(group)
+        m = t.shape[0]
+        pad = (-m) % ranks
+        if pad:
+            t = torch.cat([t, t.new_ones(pad)])
+            w = torch.cat([w, w.new_zeros(pad)])
+            wc = torch.cat([wc, wc[-1:].expand(pad, 3)])
+        k = (m + pad) // ranks
+        part = slice(rank * k, (rank + 1) * k)
+        t_p, w_p = _integrate_slab(views, ainvs, w_imgs, wc[part], t[part],
+                                   w[part], model_scale, self.trunc)
+        return (all_gather_cat(t_p, group)[:m],
+                all_gather_cat(w_p, group)[:m])
 
     def apply_prior(self):
         self.tsdf, self.weight = _apply_prior(self.tsdf, self.weight)
@@ -333,8 +361,9 @@ def run_tsdf(
     device=None,
 ):
     """Full TSDF pipeline on in-memory altitude maps {view_name: (coef,
-    inter, altitude[H,W])}. Returns (profile, dsm). ``mesh`` is not ported
-    (ROADMAP Queue 1 item 13)."""
+    inter, altitude[H,W])}. Returns (profile, dsm). ``mesh`` shards the
+    integration (TSDFVolume); the mesh file is written by the coordinator
+    only."""
     from eogs2_tpu_torch.eval.dsm import flatten_cloud
     from eogs2_tpu_torch.io.geotiff import Affine
 
@@ -356,7 +385,9 @@ def run_tsdf(
                       altitudes=stacked(alts))
     vol.integrate_views(views, model_scale)
     vol.apply_prior()
-    if export_mesh_path:
+    from eogs2_tpu_torch.parallel.distributed import is_coordinator
+
+    if export_mesh_path and is_coordinator():
         from eogs2_tpu_torch.eval.mesh import export_obj
 
         verts, faces = vol.extract_mesh()
@@ -387,10 +418,8 @@ def run_tsdf_cli(args):
     from eogs2_tpu_torch.io.geotiff import read_geotiff, write_geotiff
     from eogs2_tpu_torch.scene import load_scene
 
-    if getattr(args, "n_devices", 1) > 1:
-        raise NotImplementedError(
-            f"tsdf --n-devices {args.n_devices}: sharded TSDF integration "
-            f"is not ported yet (ROADMAP Queue 1 item 13)")
+    from eogs2_tpu_torch.parallel.distributed import is_coordinator
+
     scene = load_scene(
         args.scene_dir,
         images_msi_path=args.images_msi or os.path.join(args.scene_dir, "images"),
@@ -431,9 +460,11 @@ def run_tsdf_cli(args):
         trunc_margin_fact=args.trunc_margin_fact,
         resolution=0.3 if "IARPA" in args.scene_dir else 0.5,
         export_mesh_path=mesh_path,
+        mesh=getattr(args, "mesh", None),
         device=args.device,
     )
-    write_geotiff(os.path.join(out_dir, "dsm.tif"), dsm.astype(np.float32),
-                  transform=profile["transform"])
-    print(f"tsdf dsm written to {out_dir}/dsm.tif")
+    if is_coordinator():  # in a process group, rank 0 writes
+        write_geotiff(os.path.join(out_dir, "dsm.tif"),
+                      dsm.astype(np.float32), transform=profile["transform"])
+        print(f"tsdf dsm written to {out_dir}/dsm.tif")
     return 0

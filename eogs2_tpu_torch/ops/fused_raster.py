@@ -150,13 +150,14 @@ def _tile_chunks(cnt, chunk_elems: int):
         yield t0, t1, int(cnt_host[t0:t1].max())
 
 
-def _chunk_fields(pay, tstart, cnt, grid_x, t0, t1, k_len):
+def _chunk_fields(pay, tstart, cnt, grid_x, t0, t1, k_len, tile0=0):
     """The blend's per pair-pixel quantities for tiles [t0, t1), as the
     kernels compute them: (idx, valid, g, dx, dy, G, alpha, keep, cp,
-    live, t_before, w), pair-pixel arrays [tc, K, P]."""
+    live, t_before, w), pair-pixel arrays [tc, K, P]. Local tile t has the
+    pixels of global tile tile0 + t."""
     dev = pay.device
     lpix = torch.arange(P, device=dev)
-    ids = torch.arange(t0, t1, device=dev)
+    ids = torch.arange(t0 + tile0, t1 + tile0, device=dev)
     k = torch.arange(k_len, device=dev)
     valid = k[None, :] < cnt[t0:t1, None]  # [tc, K]
     idx = torch.clamp(tstart[t0:t1, None].to(torch.int64) + k[None, :],
@@ -181,9 +182,10 @@ def _chunk_fields(pay, tstart, cnt, grid_x, t0, t1, k_len):
     return idx, valid, g, dx, dy, G, alpha, keep, cp, live, t_before, w
 
 
-def fused_blend_fwd_plain(pay, tstart, cnt, grid_x: int,
+def fused_blend_fwd_plain(pay, tstart, cnt, grid_x: int, tile0: int = 0,
                           chunk_elems: int = 1 << 25):
-    """Plain PyTorch version of K1 (same function, same [T, P, 8] output).
+    """Plain PyTorch version of K1 (same function, same [T, P, 8] output;
+    local tile t covers the pixels of global tile tile0 + t).
 
     Pads each tile's pairs to the longest range of its chunk of tiles and
     composites with a cumprod over the pair axis, chunked over tiles so that
@@ -197,7 +199,7 @@ def fused_blend_fwd_plain(pay, tstart, cnt, grid_x: int,
             out8[t0:t1, :, 5] = 1.0
             continue
         _, _, g, _, _, _, _, keep, cp, live, _, w = _chunk_fields(
-            pay, tstart, cnt, grid_x, t0, t1, k_len)
+            pay, tstart, cnt, grid_x, t0, t1, k_len, tile0)
         out8[t0:t1, :, :NC] = torch.einsum("tkp,ctk->tpc", w, g[6:6 + NC])
         out8[t0:t1, :, 5] = torch.where(live, cp, 1.0).amin(dim=1)
         pos = torch.arange(1, k_len + 1, device=pay.device,
@@ -225,8 +227,10 @@ def _on_card(name, pay):
 _VP, _I = ctypes.c_void_p, ctypes.c_int
 
 
-def fused_blend_fwd(pay, tstart, cnt, grid_x: int):
+def fused_blend_fwd(pay, tstart, cnt, grid_x: int, tile0: int = 0):
     """K1: per-tile front-to-back composite -> out8 [T, 256, 8] float32.
+    Local tile t is global tile tile0 + t of a frame grid_x tiles wide (a
+    row band's first tile on the multi-device path, 0 on the whole frame).
 
     CPU tensors go to :func:`fused_blend_fwd_plain`. CUDA tensors launch the
     hand-written kernel (csrc/fused_blend_fwd.cu, built at first use) or
@@ -237,16 +241,17 @@ def fused_blend_fwd(pay, tstart, cnt, grid_x: int):
     would wait for the card."""
     _check_grid(tstart, grid_x)
     if not _on_card("fused_blend_fwd", pay):
-        return fused_blend_fwd_plain(pay, tstart, cnt, grid_x)
+        return fused_blend_fwd_plain(pay, tstart, cnt, grid_x, tile0)
     n_tiles = _check_blend_inputs("fused_blend_fwd", pay, tstart, cnt)
     from eogs2_tpu_torch.ops import cuda_build
 
     fn = cuda_build.entry("fused_blend_fwd", "eogs2_fused_blend_fwd",
-                          [_VP, ctypes.c_longlong, _VP, _VP, _I, _I, _VP, _VP])
+                          [_VP, ctypes.c_longlong, _VP, _VP, _I, _I, _I, _VP,
+                           _VP])
     out8 = torch.empty((n_tiles, P, 8), dtype=torch.float32, device=pay.device)
     with torch.cuda.device(pay.device):
         err = fn(pay.data_ptr(), pay.shape[1], tstart.data_ptr(),
-                 cnt.data_ptr(), n_tiles, grid_x, out8.data_ptr(),
+                 cnt.data_ptr(), n_tiles, grid_x, int(tile0), out8.data_ptr(),
                  torch.cuda.current_stream().cuda_stream)
     cuda_build.check_launch(err, "fused_blend_fwd")
     fused_blend_fwd.launches += 1
@@ -261,24 +266,24 @@ def _cols(pay_rows):
     return pay_rows[:, :NF].t().contiguous()
 
 
-def fused_blend_fwd_rows(pay, tstart, cnt, grid_x: int):
+def fused_blend_fwd_rows(pay, tstart, cnt, grid_x: int, tile0: int = 0):
     """K3 forward: K1 on the row payload [P, 16] (one 64-byte row per
     pair) -> the same out8, bit for bit. CPU tensors take K1's plain
     version on the columns; CUDA tensors launch the kernel (the row load of
     csrc/fused_blend_fwd.cu) or raise."""
     _check_grid(tstart, grid_x)
     if not _on_card("fused_blend_fwd_rows", pay):
-        return fused_blend_fwd_plain(_cols(pay), tstart, cnt, grid_x)
+        return fused_blend_fwd_plain(_cols(pay), tstart, cnt, grid_x, tile0)
     n_tiles = _check_blend_inputs("fused_blend_fwd_rows", pay, tstart, cnt,
                                   rows=True)
     from eogs2_tpu_torch.ops import cuda_build
 
     fn = cuda_build.entry("fused_blend_fwd", "eogs2_fused_blend_fwd_rows",
-                          [_VP, _VP, _VP, _I, _I, _VP, _VP])
+                          [_VP, _VP, _VP, _I, _I, _I, _VP, _VP])
     out8 = torch.empty((n_tiles, P, 8), dtype=torch.float32, device=pay.device)
     with torch.cuda.device(pay.device):
         err = fn(pay.data_ptr(), tstart.data_ptr(), cnt.data_ptr(), n_tiles,
-                 grid_x, out8.data_ptr(),
+                 grid_x, int(tile0), out8.data_ptr(),
                  torch.cuda.current_stream().cuda_stream)
     cuda_build.check_launch(err, "fused_blend_fwd_rows")
     fused_blend_fwd_rows.launches += 1
@@ -289,8 +294,9 @@ fused_blend_fwd_rows.launches = 0  # kernel launches on the card
 
 
 def fused_blend_bwd_plain(pay, tstart, cnt, out8, g_out8, grid_x: int,
-                          chunk_elems: int = 1 << 24):
-    """Plain PyTorch version of K2 (same function, same [NF, P] output).
+                          tile0: int = 0, chunk_elems: int = 1 << 24):
+    """Plain PyTorch version of K2 (same function, same [NF, P] output;
+    tile0 as in fused_blend_fwd_plain).
 
     Recomputes the forward per chunk of tiles as fused_blend_fwd_plain does,
     then, per pair and pixel (front to back, cumsum over the pair axis):
@@ -311,7 +317,7 @@ def fused_blend_bwd_plain(pay, tstart, cnt, out8, g_out8, grid_x: int,
         if k_len == 0:
             continue
         idx, valid, g, dx, dy, G, alpha, keep, _, live, t_before, w = \
-            _chunk_fields(pay, tstart, cnt, grid_x, t0, t1, k_len)
+            _chunk_fields(pay, tstart, cnt, grid_x, t0, t1, k_len, tile0)
         o, go = out8[t0:t1], g_out8[t0:t1]  # [tc, P, 8]
         g_pix = go[..., :NC]
         total = (o[..., :NC] * g_pix).sum(-1)[:, None, :]  # [tc, 1, P]
@@ -360,9 +366,11 @@ def _check_blend_inputs(name, pay, tstart, cnt, *maps, rows=False):
     return n_tiles
 
 
-def fused_blend_bwd(pay, tstart, cnt, out8, g_out8, grid_x: int):
+def fused_blend_bwd(pay, tstart, cnt, out8, g_out8, grid_x: int,
+                    tile0: int = 0):
     """K2: per sorted pair row, dL/d(mx, my, conic a, b, c, opacity,
-    f0..f4) -> g_pay [NF, P] float32 (rows no pixel reached are 0).
+    f0..f4) -> g_pay [NF, P] float32 (rows no pixel reached are 0; rows in
+    no tile's range are not written). tile0 as in fused_blend_fwd.
 
     out8 is K1's output for the same inputs, g_out8 its cotangent (channels
     0-4 the pre-background channels, 5 final_T; 6-7 ignored). CPU tensors go
@@ -371,18 +379,19 @@ def fused_blend_bwd(pay, tstart, cnt, out8, g_out8, grid_x: int):
     falling back to the plain version on the card."""
     _check_grid(tstart, grid_x)
     if not _on_card("fused_blend_bwd", pay):
-        return fused_blend_bwd_plain(pay, tstart, cnt, out8, g_out8, grid_x)
+        return fused_blend_bwd_plain(pay, tstart, cnt, out8, g_out8, grid_x,
+                                     tile0)
     n_tiles = _check_blend_inputs("fused_blend_bwd", pay, tstart, cnt,
                                   ("out8", out8), ("g_out8", g_out8))
     from eogs2_tpu_torch.ops import cuda_build
 
     fn = cuda_build.entry("fused_blend_bwd", "eogs2_fused_blend_bwd",
-                          [_VP, ctypes.c_longlong, _VP, _VP, _I, _I, _VP,
+                          [_VP, ctypes.c_longlong, _VP, _VP, _I, _I, _I, _VP,
                            _VP, _VP, _VP])
     g_pay = torch.empty_like(pay)
     with torch.cuda.device(pay.device):
         err = fn(pay.data_ptr(), pay.shape[1], tstart.data_ptr(),
-                 cnt.data_ptr(), n_tiles, grid_x, out8.data_ptr(),
+                 cnt.data_ptr(), n_tiles, grid_x, int(tile0), out8.data_ptr(),
                  g_out8.data_ptr(), g_pay.data_ptr(),
                  torch.cuda.current_stream().cuda_stream)
     cuda_build.check_launch(err, "fused_blend_bwd")
@@ -393,7 +402,8 @@ def fused_blend_bwd(pay, tstart, cnt, out8, g_out8, grid_x: int):
 fused_blend_bwd.launches = 0  # kernel launches on the card
 
 
-def fused_blend_bwd_rows(pay, tstart, cnt, out8, g_out8, grid_x: int):
+def fused_blend_bwd_rows(pay, tstart, cnt, out8, g_out8, grid_x: int,
+                         tile0: int = 0):
     """K3 backward: K2 on the row payload [P, 16] -> g_pay [P, 16] (fields
     11-15 zero), K2's gradients transposed, bit for bit. CPU tensors take
     K2's plain version on the columns; CUDA tensors launch the kernel (the
@@ -401,7 +411,7 @@ def fused_blend_bwd_rows(pay, tstart, cnt, out8, g_out8, grid_x: int):
     _check_grid(tstart, grid_x)
     if not _on_card("fused_blend_bwd_rows", pay):
         g = fused_blend_bwd_plain(_cols(pay), tstart, cnt, out8, g_out8,
-                                  grid_x)
+                                  grid_x, tile0)
         return torch.nn.functional.pad(g.t(), (0, NFR - NF))
     n_tiles = _check_blend_inputs("fused_blend_bwd_rows", pay, tstart, cnt,
                                   ("out8", out8), ("g_out8", g_out8),
@@ -409,11 +419,11 @@ def fused_blend_bwd_rows(pay, tstart, cnt, out8, g_out8, grid_x: int):
     from eogs2_tpu_torch.ops import cuda_build
 
     fn = cuda_build.entry("fused_blend_bwd", "eogs2_fused_blend_bwd_rows",
-                          [_VP, _VP, _VP, _I, _I, _VP, _VP, _VP, _VP])
+                          [_VP, _VP, _VP, _I, _I, _I, _VP, _VP, _VP, _VP])
     g_pay = torch.empty_like(pay)
     with torch.cuda.device(pay.device):
         err = fn(pay.data_ptr(), tstart.data_ptr(), cnt.data_ptr(), n_tiles,
-                 grid_x, out8.data_ptr(), g_out8.data_ptr(), g_pay.data_ptr(),
+                 grid_x, int(tile0), out8.data_ptr(), g_out8.data_ptr(), g_pay.data_ptr(),
                  torch.cuda.current_stream().cuda_stream)
     cuda_build.check_launch(err, "fused_blend_bwd_rows")
     fused_blend_bwd_rows.launches += 1
@@ -425,22 +435,23 @@ fused_blend_bwd_rows.launches = 0  # kernel launches on the card
 
 class FusedBlend(torch.autograd.Function):
     """Differentiable fused blend: K1 and K2 on the column payload, K3 on
-    the row payload (``rows``)."""
+    the row payload (``rows``); local tile t is global tile tile0 + t."""
 
     @staticmethod
-    def forward(ctx, pay, tstart, cnt, grid_x, rows=False):
+    def forward(ctx, pay, tstart, cnt, grid_x, rows=False, tile0=0):
         fwd = fused_blend_fwd_rows if rows else fused_blend_fwd
-        out8 = fwd(pay, tstart, cnt, grid_x)
+        out8 = fwd(pay, tstart, cnt, grid_x, tile0)
         ctx.save_for_backward(pay, tstart, cnt, out8)
-        ctx.grid_x, ctx.rows = grid_x, rows
+        ctx.grid_x, ctx.rows, ctx.tile0 = grid_x, rows, tile0
         return out8
 
     @staticmethod
     def backward(ctx, g_out8):
         pay, tstart, cnt, out8 = ctx.saved_tensors
         bwd = fused_blend_bwd_rows if ctx.rows else fused_blend_bwd
-        g_pay = bwd(pay, tstart, cnt, out8, g_out8.contiguous(), ctx.grid_x)
-        return g_pay, None, None, None, None
+        g_pay = bwd(pay, tstart, cnt, out8, g_out8.contiguous(), ctx.grid_x,
+                    ctx.tile0)
+        return g_pay, None, None, None, None, None
 
 
 def rasterize_fused(prep: Preprocessed, features, width: int, height: int,

@@ -39,8 +39,10 @@ iterations: ``tile_capacity`` when the densest tile reaches 95% of it,
 ``max_tiles_per_gaussian`` when the widest Gaussian exceeds it), each to the
 power-of-two bucket of the observed demand, as JAX's reprobe re-sizes to
 live demand rather than stepping one bucket; with nothing to recompile, a
-grow is a config replace. Not ported: ``probe_capacities`` itself (ROADMAP
-Queue 3), ``next_buckets`` and ``prewarm_bucket_ladder`` (compile-cache
+grow is a config replace. ``probe_capacities`` sizes the single-tier
+capacities (and ``dest_cap``) from the live state; on the a2a path the
+grow re-probes, as JAX's does. Not ported: the probe's big tier,
+``next_buckets`` and ``prewarm_bucket_ladder`` (compile-cache
 warmers), ``early_exit_auto``, ``steps_per_dispatch`` and the step's
 ``.chunk`` (lax.scan) path.
 
@@ -57,9 +59,12 @@ every ``testing_interval`` (e.g. the Nadir DSM's MAE,
 (``save_model``, at ``save_iterations``) and full checkpoints
 (``checkpoint.py``, at ``checkpoint_iterations``; ``restore`` resumes from
 one), in JAX's directory layout with a ``torch.save`` file where JAX
-writes an orbax directory. Still to port (ROADMAP Queue 1): the
-multi-device backends (item 13); the step raises NotImplementedError for
-them.
+writes an orbax directory. Several devices (JAX's ``mesh`` and
+``raster_backend``, parallel/): the Trainer keeps its rank's shard of the
+Gaussians and the step runs either the one-device step on the joined
+shards (``gspmd``) or the all_to_all pair-exchange rasterizer (``a2a``);
+``views_per_step`` batches views, split over a "d" mesh axis
+(``make_train_step``).
 """
 
 from __future__ import annotations
@@ -96,6 +101,7 @@ from eogs2_tpu_torch.ops.projection import TILE
 from eogs2_tpu_torch.ops.resample import grid_sample
 from eogs2_tpu_torch.ops.sh import SH2RGB
 from eogs2_tpu_torch.pansharpen import load_pansharp
+from eogs2_tpu_torch.parallel.sharded_raster import rasterize_a2a
 from eogs2_tpu_torch.pipeline import evaluate_dsm_mae, render_view_full
 from eogs2_tpu_torch.rasterizer import RasterizeConfig, rasterize
 from eogs2_tpu_torch.scene import SceneData
@@ -255,6 +261,19 @@ def camera_optimizer(shading: CameraShadingParams,
                             betas=(0.9, 0.999), eps=1e-8)
 
 
+class _Gaussians(NamedTuple):
+    """The Gaussians' tensors a step reads (the joined shards on gspmd
+    with a mesh)."""
+
+    xyz: torch.Tensor
+    features_dc: torch.Tensor
+    features_rest: torch.Tensor
+    scaling: torch.Tensor
+    rotation: torch.Tensor
+    opacity: torch.Tensor
+    alive: torch.Tensor
+
+
 def make_train_step(
     modalities,  # tuple of (name, SceneTensors, pan_mode | None, shading_idx_off)
     cfg: TrainConfig,
@@ -263,6 +282,7 @@ def make_train_step(
     gauss_opt: torch.optim.Optimizer,
     cam_opt: torch.optim.Optimizer,
     raster_backend: str = "gspmd",
+    mesh=None,
 ) -> Callable:
     """The step for one Phase: step(model, shading, view_idx, bg_draw,
     shear_draw, gates) -> metrics (a dict of 0-d tensors, not synced).
@@ -275,16 +295,57 @@ def make_train_step(
     random_background) and shear_draw [M, 2] standard normal (the random
     camera's draw), one row per modality (a single modality may pass [5]
     and [2]); gates from make_gates. The step updates the model, the
-    shading parameters and both optimizers in place."""
+    shading parameters and both optimizers in place.
+
+    ``views_per_step`` > 1 (JAX's vmap over a view batch): ``view_idx`` is
+    a list of views and the draws carry a leading view axis ([V, M, 5],
+    [V, M, 2], one draw per view); the views' losses are summed, their
+    metrics averaged and their radii maxed, as in JAX.
+
+    With a ``mesh`` (parallel.mesh.make_mesh), ``model`` is this rank's
+    shard of the Gaussians over "g" (parallel.mesh.shard_gaussian_state):
+
+      * ``raster_backend="gspmd"``: the shards are joined (all_gather, whose
+        backward keeps this rank's slice) and the step is the one-device
+        step on the whole set, on every rank; JAX lets GSPMD partition the
+        one-device step, whose sorts gather.
+      * ``raster_backend="a2a"``: every render goes through
+        ``parallel.sharded_raster.rasterize_a2a`` (each rank preprocesses
+        its shard, blends its band of tile rows); the whole image comes back
+        on every rank, which computes the whole loss; the per-Gaussian loss
+        terms read the joined arrays; the camera's affine is summed over
+        the ranks where it meets this rank's Gaussians. JAX asserts the
+        mesh and views_per_step == 1 here (train.py:184, :893); so does
+        the port (ValueError).
+      * with a "d" axis, each "d" row renders its share of the views
+        (view j on row j mod d) and the gradients (Gaussians, shading, the
+        densification statistic) are summed over "d".
+
+    The metrics are the same on every rank. On ``a2a`` the step's
+    ``max_tile``, ``max_tiles_per_gaussian`` and ``max_dest_count`` are the
+    largest over its renders and ``dropped_pairs`` their sum (every render
+    clips at ``tile_capacity``, ``max_tiles_per_gaussian`` and
+    ``dest_cap`` there); JAX reports the main render's."""
+    import torch.distributed as dist
+
+    from eogs2_tpu_torch.parallel.distributed import (all_gather_cat,
+                                                      all_reduce_, sum_grad)
+    from eogs2_tpu_torch.parallel.mesh import axis_group, axis_rank, axis_size
+
     o = cfg.optimization
-    if getattr(o, "views_per_step", 1) > 1:
-        raise NotImplementedError(
-            "views_per_step > 1 is not ported (a TPU batching extension; "
-            "ROADMAP Queue 1 item 13 with the multi-device step)")
-    if raster_backend != "gspmd":
-        raise NotImplementedError(
-            f"raster_backend={raster_backend!r}: the multi-device path is "
-            f"ROADMAP Queue 1 item 13")
+    vps = getattr(o, "views_per_step", 1)
+    if raster_backend == "a2a":
+        if mesh is None:
+            raise ValueError("raster_backend='a2a' needs a mesh")
+        if vps > 1:
+            raise ValueError("raster_backend='a2a' shards the image over "
+                             "the mesh: views_per_step must be 1")
+    elif raster_backend != "gspmd":
+        raise ValueError(f"unknown raster_backend {raster_backend!r}")
+    a2a = raster_backend == "a2a"
+    g_group, d_group = axis_group(mesh, "g"), axis_group(mesh, "d")
+    n_d, d_rank = axis_size(mesh, "d"), axis_rank(mesh, "d")
+    join = mesh is not None and not a2a  # gspmd: the whole set per rank
     cam_params = cfg.model.camera_params
     fm = o.flowmatching
     # the trainer always renders the EOGS channel layout [rgb, alt, 1]
@@ -297,6 +358,8 @@ def make_train_step(
 
         def camera_loss(model, sp, m2d_off, view_idx, bg_draw, shear_draw,
                         gates):
+            # model: the Gaussians' tensors (a GaussianModel, or the joined
+            # shards on gspmd with a mesh)
             vi = view_idx + idx_off
             affine = consts.affines[view_idx]
             if phase.learn_pose:
@@ -308,6 +371,10 @@ def make_train_step(
                 camera_to_sun=consts.cam2sun[view_idx],
                 altitude_bounds=consts.alt_bounds[view_idx],
                 centerofscene=consts.centerofscene, width=wn, height=hn)
+            # a2a: the camera as this rank's Gaussians see it, its affine's
+            # gradient summed over the ranks (the rasterizer sums its own)
+            cam_g = (cam.replace(affine=sum_grad(cam.affine, g_group))
+                     if a2a else cam)
 
             if o.random_background:
                 bg = bg_draw.to(torch.float32).clone()
@@ -323,15 +390,24 @@ def make_train_step(
             # ---- main render (at the padded canvas) ----
             xyz = model.xyz
             rgb = SH2RGB(model.features_dc[:, 0, :])
-            alt = cam.ecef_to_uva(xyz)[:, 2:3]
+            alt = cam_g.ecef_to_uva(xyz)[:, 2:3]
             ones = torch.ones_like(alt)
             scaling = torch.exp(model.scaling)
             opacity = torch.sigmoid(model.opacity[:, 0])
+            outs = []
 
             def raster(feats, aff, w, h, off=None):
-                return rasterize(xyz, scaling, model.rotation, opacity,
-                                 feats, aff, bg, w, h, raster_cfg,
-                                 alive=model.alive, mean2d_ndc_offset=off)
+                if a2a:
+                    ro = rasterize_a2a(mesh, xyz, scaling, model.rotation,
+                                       opacity, feats, aff, bg, w, h,
+                                       raster_cfg, alive=model.alive,
+                                       mean2d_ndc_offset=off)
+                else:
+                    ro = rasterize(xyz, scaling, model.rotation, opacity,
+                                   feats, aff, bg, w, h, raster_cfg,
+                                   alive=model.alive, mean2d_ndc_offset=off)
+                outs.append(ro)
+                return ro
 
             out = raster(torch.cat([rgb, alt, ones], dim=-1),
                          cam.resize_canvas(wp, hp).affine, wp, hp, m2d_off)
@@ -340,9 +416,9 @@ def make_train_step(
             acc_opacity = out.image[4]
             rendered_uva = torch.cat([uv_grid, altitude[..., None]], dim=-1)
 
-            def render_virtual(vcam, cam2virt, vw, vh):
-                vfeats = torch.cat([rgb, vcam.ecef_to_uva(xyz)[:, 2:3], ones],
-                                   dim=-1)
+            def render_virtual(vcam, vcam_g, cam2virt, vw, vh):
+                vfeats = torch.cat([rgb, vcam_g.ecef_to_uva(xyz)[:, 2:3],
+                                    ones], dim=-1)
                 vout = raster(vfeats, vcam.affine, vw, vh)
                 v_uv = torch.einsum("ij,hwj->hwi", cam2virt,
                                     rendered_uva)[..., :2]
@@ -355,10 +431,11 @@ def make_train_step(
             sun_altitude_diff = None
             if phase.enable_sun:
                 sun_cam, cam2sun = cam.sun_camera(f=2)
+                sun_g = cam_g.sun_camera(f=2)[0] if a2a else sun_cam
                 sw = ((sun_cam.width + TILE - 1) // TILE) * TILE
                 sh = ((sun_cam.height + TILE - 1) // TILE) * TILE
                 sun_rgb, sun_alt, sun_uv = render_virtual(
-                    sun_cam.resize_canvas(sw, sh), cam2sun, sw, sh)
+                    sun_cam.resize_canvas(sw, sh), sun_g, cam2sun, sw, sh)
                 sun_altitude_diff = altitude - sun_alt
                 alt_t, rgb_t = L.suncamera_loss(raw_render, sun_rgb,
                                                 sun_altitude_diff, sun_uv)
@@ -399,21 +476,33 @@ def make_train_step(
             if phase.enable_random:
                 new_cam, cam2new = cam.random_camera(shear_draw,
                                                      o.virtual_camera_extent)
+                new_g = (cam_g.random_camera(shear_draw,
+                                             o.virtual_camera_extent)[0]
+                         if a2a else new_cam)
                 new_rgb, new_alt, new_uv = render_virtual(
-                    new_cam.resize_canvas(wp, hp), cam2new, wp, hp)
+                    new_cam.resize_canvas(wp, hp), new_g, cam2new, wp, hp)
                 alt_t, rgb_t = L.randomcam_loss(altitude, new_alt, raw_render,
                                                 new_rgb, new_uv)
                 terms["L_new_altitude_resample"] = gates["new_resample"] * alt_t
                 terms["L_new_rgb_resample"] = gates["new_resample"] * rgb_t
 
             # ---- scalar regularizers ----
+            # (a2a: on the joined shards, whose backward keeps this rank's
+            # slice)
             init_count = gates["init_count"]
+            if a2a:
+                opacity_all, alive_all, radii_all, scaling_all = (
+                    all_gather_cat(x, g_group) for x in
+                    (opacity, model.alive, out.radii, scaling))
+            else:
+                opacity_all, alive_all, radii_all, scaling_all = (
+                    opacity, model.alive, out.radii, scaling)
             terms["L_opacity"] = gates["opacity"] * L.opacity_loss(
-                opacity, model.alive, init_count)
+                opacity_all, alive_all, init_count)
             terms["L_opacity_radii"] = gates["opacity_radii"] * \
-                L.radii_opacity_loss(opacity, out.radii, init_count)
-            terms["L_erank"] = gates["erank"] * L.erank_loss(scaling,
-                                                             model.alive)
+                L.radii_opacity_loss(opacity_all, radii_all, init_count)
+            terms["L_erank"] = gates["erank"] * L.erank_loss(scaling_all,
+                                                             alive_all)
             terms["L_TV_altitude"] = gates["tv"] * L.tv_altitude_loss(altitude)
             terms["L_accumulated_opacity"] = gates["acc_opacity"] * \
                 L.accumulated_opacity_loss(acc_opacity, valid[0])
@@ -467,6 +556,17 @@ def make_train_step(
                                          device=image.device)),
                     **{k: v.detach() for k, v in terms.items()},
                 }
+                if a2a:
+                    metrics.update(
+                        max_tile=torch.stack([r.max_tile_count
+                                              for r in outs]).max(),
+                        max_tiles_per_gaussian=torch.stack([
+                            r.max_tiles_per_gaussian_seen
+                            for r in outs]).max(),
+                        max_dest_count=torch.stack([r.max_dest_count
+                                                    for r in outs]).max(),
+                        dropped_pairs=torch.stack([r.dropped_pairs
+                                                   for r in outs]).sum())
             return total, metrics, out.radii
 
         return camera_loss
@@ -475,11 +575,36 @@ def make_train_step(
                   for (name, consts, pan_mode, idx_off) in modalities]
     n_mod = len(mod_losses)
 
+    def view_batch(closs, model, sp, m2d_off, views, bgs, shears, gates):
+        """views_per_step > 1: this "d" row's views; the losses summed,
+        the metrics averaged over all views and the radii maxed over them
+        (over the "d" rows too)."""
+        if len(views) < n_d:
+            raise ValueError(f"{len(views)} views a step over a \"d\" axis "
+                             f"of {n_d}: every row needs a view")
+        t, sums, r = None, None, None
+        for j in range(d_rank, len(views), n_d):
+            tj, mj, rj = closs(model, sp, m2d_off, views[j], bgs[j],
+                               shears[j], gates)
+            keys = list(mj)
+            vec = torch.stack([mj[k].to(torch.float64) for k in keys])
+            t = tj if t is None else t + tj
+            sums = vec if sums is None else sums + vec
+            r = rj if r is None else torch.maximum(r, rj)
+        all_reduce_(sums, group=d_group)
+        all_reduce_(r, dist.ReduceOp.MAX, d_group)
+        means = (sums / len(views)).to(torch.float32)
+        return t, dict(zip(keys, means)), r
+
     def loss_fn(model, sp, m2d_off, view_idx, bg_draws, shear_draws, gates):
         total, metrics, radii = None, {}, None
-        for (name, closs), bg, shear in zip(mod_losses, bg_draws,
-                                            shear_draws):
-            t, m, r = closs(model, sp, m2d_off, view_idx, bg, shear, gates)
+        for i, (name, closs) in enumerate(mod_losses):
+            if isinstance(view_idx, (list, tuple)):
+                t, m, r = view_batch(closs, model, sp, m2d_off, view_idx,
+                                     bg_draws[:, i], shear_draws[:, i], gates)
+            else:
+                t, m, r = closs(model, sp, m2d_off, view_idx, bg_draws[i],
+                                shear_draws[i], gates)
             total = t if total is None else total + t
             prefix = "" if n_mod == 1 else f"{name}_"
             metrics.update({prefix + k: v for k, v in m.items()})
@@ -492,16 +617,32 @@ def make_train_step(
         return total, metrics, radii
 
     def step(model: GaussianModel, shading: CameraShadingParams,
-             view_idx: int, bg_draw, shear_draw, gates):
+             view_idx, bg_draw, shear_draw, gates):
         gates = {k: float(v) for k, v in gates.items()}
-        m2d_off = torch.zeros((model.xyz.shape[0], 2), dtype=torch.float32,
-                              device=model.xyz.device, requires_grad=True)
         gauss_opt.zero_grad(set_to_none=True)
         cam_opt.zero_grad(set_to_none=True)
+        gv = model
+        if join:  # the whole set on every rank
+            gv = GaussianParams(*(all_gather_cat(getattr(model, f), g_group)
+                                  for f in GaussianParams._fields))
+            gv = _Gaussians(*gv, alive=all_gather_cat(model.alive, g_group))
+        m2d_off = torch.zeros((gv.xyz.shape[0], 2), dtype=torch.float32,
+                              device=model.xyz.device, requires_grad=True)
+        batched = isinstance(view_idx, (list, tuple))
+        lead = (len(view_idx),) if batched else ()
         total, metrics, radii = loss_fn(
-            model, shading, m2d_off, view_idx, bg_draw.reshape(n_mod, 5),
-            shear_draw.reshape(n_mod, 2), gates)
+            gv, shading, m2d_off, view_idx,
+            bg_draw.reshape(lead + (n_mod, 5)),
+            shear_draw.reshape(lead + (n_mod, 2)), gates)
         total.backward()
+        if n_d > 1:  # the views' gradients summed over "d"
+            for opt in (gauss_opt, cam_opt):
+                for group in opt.param_groups:
+                    for p in group["params"]:
+                        if p.grad is None:
+                            p.grad = torch.zeros_like(p)
+                        all_reduce_(p.grad, group=d_group)
+            all_reduce_(m2d_off.grad, group=d_group)
         # every leaf steps, as in optax (a leaf the loss does not reach
         # gets a zero gradient, so its moments and step count advance)
         for opt in (gauss_opt, cam_opt):
@@ -515,6 +656,14 @@ def make_train_step(
         shading.msi_to_pan_bias.grad.mul_(gates["learn_msitopan"])
         shading.last_row.grad.mul_(gates["learn_pose"])
 
+        g_m2d = m2d_off.grad
+        grad_max = g_m2d.abs().max()
+        if join:  # back to this rank's slice
+            lo = model.xyz.shape[0] * axis_rank(mesh, "g")
+            g_m2d = g_m2d[lo:lo + model.xyz.shape[0]]
+            radii = radii[lo:lo + model.xyz.shape[0]]
+        elif a2a:
+            all_reduce_(grad_max, dist.ReduceOp.MAX, g_group)
         if o.optimizer_type == "sparse_adam":
             # only Gaussians visible this step move; moments still advance
             vis = radii > 0
@@ -528,8 +677,8 @@ def make_train_step(
                 for p, old in zip(ps, before):
                     m = vis.reshape((-1,) + (1,) * (p.dim() - 1))
                     p.copy_(torch.where(m, p, old))
-        add_densification_stats(model, m2d_off.grad, radii)
-        metrics["grad_m2d_max"] = m2d_off.grad.abs().max()
+        add_densification_stats(model, g_m2d, radii)
+        metrics["grad_m2d_max"] = grad_max
         return metrics
 
     return step
@@ -559,7 +708,19 @@ class Trainer:
     GaussianModel, ``trainer.model``). ``report_logger`` (anything with
     ``log_scalars(dict, it)`` and ``log_image(tag, img, it)``) receives
     ``training_report``'s output; with ``mae_computer`` (an
-    ``eval.mae.MaeComputer``) set, the report holds the Nadir DSM's MAE."""
+    ``eval.mae.MaeComputer``) set, the report holds the Nadir DSM's MAE.
+
+    Several devices (JAX's ``mesh`` and ``raster_backend``): with ``mesh``
+    (parallel.mesh.make_mesh, one rank per card, every rank running the
+    same Trainer on the same scene and seed) each rank keeps its shard of
+    the Gaussians and their Adam moments over "g" (``_place``), and the
+    step is ``make_train_step``'s for ``raster_backend`` ("gspmd" or
+    "a2a"). Densification, the hooks, the report, the calibration, the
+    flow bake, the colour reset, saves and checkpoints run on the whole
+    model, joined from the shards for the call (``whole``), and what they
+    change goes back to the shards; so their results are the one-device
+    Trainer's. Saves and checkpoints are written by the coordinator (rank
+    0) only; every rank takes part in joining them."""
 
     cfg: TrainConfig
     scene: SceneData
@@ -569,6 +730,86 @@ class Trainer:
     log_hook: Optional[Callable] = None
     report_logger: Optional[object] = None
     mae_computer: Optional[object] = None
+    mesh: Optional[object] = None
+    raster_backend: str = "gspmd"
+
+    def _place(self, model):
+        """This rank's shard of a whole model (the model itself without a
+        mesh)."""
+        if self.mesh is None:
+            return model
+        from eogs2_tpu_torch.parallel.mesh import shard_gaussian_state
+
+        return shard_gaussian_state(model, self.mesh)[0]
+
+    def whole(self) -> "Trainer":
+        """This Trainer without a mesh, holding the whole model (the
+        shards joined in rank order) and a Gaussian Adam over it with the
+        joined moments; everything else is shared with this Trainer. Every
+        rank must call it (it gathers). Without a mesh: self."""
+        if self.mesh is None:
+            return self
+        import copy
+
+        from eogs2_tpu_torch.model import GaussianAux
+        from eogs2_tpu_torch.parallel.distributed import all_gather_cat
+        from eogs2_tpu_torch.parallel.mesh import adam_like, axis_group
+
+        group = axis_group(self.mesh, "g")
+
+        def join(x):
+            return all_gather_cat(x.detach(), group)
+
+        with torch.no_grad():
+            model = GaussianModel(
+                GaussianParams(*(join(getattr(self.model, f))
+                                 for f in GaussianParams._fields)),
+                GaussianAux(*(join(getattr(self.model, f))
+                              for f in GaussianAux._fields)),
+                self.model.sh_degree)
+            opt = adam_like(self.gauss_opt,
+                            [getattr(model, f)
+                             for f in GaussianParams._fields], join)
+        view = copy.copy(self)
+        view.mesh, view.raster_backend = None, "gspmd"
+        view.model, view.gauss_opt, view._steps = model, opt, {}
+        return view
+
+    @torch.no_grad()
+    def _take_shard(self, view: "Trainer") -> None:
+        """Copy this rank's rows of ``view``'s (whole's) model and Adam
+        moments into the shard, in place, and its step count."""
+        from eogs2_tpu_torch.model import GaussianAux
+        from eogs2_tpu_torch.parallel.mesh import gauss_range
+
+        lo, hi = gauss_range(view.model.xyz.shape[0], self.mesh)
+        for f in GaussianParams._fields + GaussianAux._fields:
+            getattr(self.model, f).copy_(getattr(view.model, f)[lo:hi])
+        for f in GaussianParams._fields:
+            src = view.gauss_opt.state.get(getattr(view.model, f))
+            if not src or "exp_avg" not in src:
+                continue
+            p = getattr(self.model, f)
+            st = self.gauss_opt.state[p]
+            if "exp_avg" not in st:
+                st["step"] = src["step"].clone()
+                st["exp_avg"] = torch.zeros_like(p)
+                st["exp_avg_sq"] = torch.zeros_like(p)
+            st["step"].copy_(src["step"])
+            st["exp_avg"].copy_(src["exp_avg"][lo:hi])
+            st["exp_avg_sq"].copy_(src["exp_avg_sq"][lo:hi])
+        self.step = view.step
+
+    def _on_whole(self, method, *args, write_back: bool = False):
+        """``method(whole, *args)``; with ``write_back`` what it changed in
+        the model goes back to the shard. Without a mesh: method(self)."""
+        if self.mesh is None:
+            return method(self, *args)
+        view = self.whole()
+        out = method(view, *args)
+        if write_back:
+            self._take_shard(view)
+        return out
 
     def setup(self):
         cfg = self.cfg
@@ -604,10 +845,10 @@ class Trainer:
         n_init = len(self.scene.init_xyz)
         capacity = int(n_init * cfg.model.capacity_headroom)
         capacity = ((capacity + 127) // 128) * 128
-        self.model = init_from_points(
+        self.model = self._place(init_from_points(
             self.scene.init_xyz, self.scene.init_rgb, capacity=capacity,
             sh_degree=cfg.model.sh_degree,
-            opacity_init_value=cfg.model.opacity_init_value, device=dev)
+            opacity_init_value=cfg.model.opacity_init_value, device=dev))
         self.init_count = n_init
         # shading rows: one per view, or one per view and modality without
         # share_color_correction (each modality at its idx_off)
@@ -661,13 +902,16 @@ class Trainer:
         demand's bucket (RasterizeConfig.bucketed, the densest tile kept
         below 95% of it), never shrunk."""
         rc = self.raster_cfg
-        if rc.binning_mode == "fused":
-            return  # the fused route reads neither capacity
 
         def seen(key):  # the largest over the modalities' main renders
             keys = ([key] if key in metrics
                     else [f"{n}_{key}" for n, _ in self.modal_views])
             return max(float(metrics[k]) for k in keys)
+
+        if self.raster_backend == "a2a":
+            return self._grow_a2a(seen)
+        if rc.binning_mode == "fused":
+            return  # the fused route reads neither capacity
 
         want = rc.bucketed(seen("max_tile") / 0.95,
                            seen("max_tiles_per_gaussian"))
@@ -675,6 +919,111 @@ class Trainer:
             rc, tile_capacity=max(rc.tile_capacity, want.tile_capacity),
             max_tiles_per_gaussian=max(rc.max_tiles_per_gaussian,
                                        want.max_tiles_per_gaussian)))
+
+    def _grow_a2a(self, seen):
+        """The a2a path's capacity grow (JAX's rebucket check with
+        reprobe_on_grow, train.py:1420-1560): when a render of the step came
+        near a capacity (the densest tile at 95% of tile_capacity, a
+        Gaussian wider than max_tiles_per_gaussian, a window at 95% of
+        dest_cap) or dropped pairs, re-probe every capacity from the live
+        state at slack 1.5; dest_cap at least JAX's step (1.5x after a drop,
+        else 1.3x the largest window, in multiples of 1024). Nothing
+        shrinks."""
+        rc = self.raster_cfg
+        mdc, ndrop = seen("max_dest_count"), seen("dropped_pairs")
+        if not (seen("max_tile") >= 0.95 * rc.tile_capacity
+                or seen("max_tiles_per_gaussian") > rc.max_tiles_per_gaussian
+                or ndrop > 0 or mdc >= 0.95 * rc.dest_cap):
+            return
+        if ndrop > 0:
+            print(f"WARNING: the a2a exchange dropped {int(ndrop)} pairs "
+                  f"(window {int(mdc)} against dest_cap {rc.dest_cap}); "
+                  f"growing", flush=True)
+        step = (_upm(rc.dest_cap * 1.5, 1024) if ndrop > 0
+                else _upm(np.ceil(mdc * 1.3), 1024))
+        probed = self.probe_capacities(slack=1.5)
+        self.set_raster_cfg(dataclasses.replace(
+            probed,
+            tile_capacity=max(rc.tile_capacity, probed.tile_capacity),
+            max_tiles_per_gaussian=max(rc.max_tiles_per_gaussian,
+                                       probed.max_tiles_per_gaussian),
+            dest_cap=max(rc.dest_cap, probed.dest_cap, step)))
+
+    @torch.no_grad()
+    def probe_capacities(self, slack: float = 1.2) -> RasterizeConfig:
+        """Size the capacities that clip on the a2a path and the dense
+        modes from the current state, with ``slack`` (JAX's
+        probe_capacities, train.py:920-1108, for the single-tier emission
+        the port's routes have): tile_capacity above the densest tile (a
+        multiple of 512), max_tiles_per_gaussian above the widest
+        Gaussian's rect tiles (a power of two, at least 4), and, on the a2a
+        path, dest_cap above the largest (source rank, destination band)
+        window (a multiple of 128).
+
+        Each train view is preprocessed at the canvas the step renders it
+        at, and so is its sun camera when the recipe renders the sun (JAX
+        probes the views
+        only; the step's sun render is twice their size). The demand is
+        counted on the pairs the emission makes, with tile_cull as
+        configured (JAX counts the rect rows, unculled). Returns the new
+        config, also installed."""
+        from eogs2_tpu_torch.ops.binning import grid_dims
+        from eogs2_tpu_torch.ops.pair_pipeline import emit_pairs
+        from eogs2_tpu_torch.ops.projection import (compute_cov2d_direct,
+                                                    preprocess_gaussians)
+        import torch.distributed as dist
+
+        from eogs2_tpu_torch.parallel.distributed import all_reduce_
+        from eogs2_tpu_torch.parallel.mesh import axis_group, axis_size
+
+        rc, model = self.raster_cfg, self.model
+        group = axis_group(self.mesh, "g")
+        n = axis_size(self.mesh, "g")
+        scaling = torch.exp(model.scaling)
+        opacity = torch.sigmoid(model.opacity[:, 0])
+        o = self.cfg.optimization
+        cams = []
+        for v in self.modal_views[0][1]:
+            cam = v.camera
+            wp = -(-cam.width // TILE) * TILE
+            hp = -(-cam.height // TILE) * TILE
+            cams.append((cam.resize_canvas(wp, hp), wp, hp))
+            if cam.has_sun and o.iterstart_shadowmapping < o.iterations:
+                sun = cam.sun_camera(f=2)[0]
+                sw = -(-sun.width // TILE) * TILE
+                sh = -(-sun.height // TILE) * TILE
+                cams.append((sun.resize_canvas(sw, sh), sw, sh))
+        max_tile = max_dest = widest = 0
+        for cam, w, h in cams:
+            cov2d = compute_cov2d_direct(scaling, model.rotation, cam.affine,
+                                         w, h)
+            prep = preprocess_gaussians(model.xyz, None, opacity, cam.affine,
+                                        w, h, alive=model.alive, cov2d=cov2d)
+            gx, gy = grid_dims(w, h)
+            _, tile = emit_pairs(prep, gx, tile_cull=rc.tile_cull)
+            per_tile = torch.bincount(tile, minlength=gx * gy)
+            tpb = -(-gy // n) * gx
+            per_band = torch.bincount(tile // tpb, minlength=n)
+            stats = torch.stack([per_band.max(),
+                                 prep.tiles_touched.max().to(torch.int64)])
+            all_reduce_(per_tile, group=group)
+            all_reduce_(stats, dist.ReduceOp.MAX, group)
+            max_tile = max(max_tile, int(per_tile.max()))
+            max_dest, widest = (max(max_dest, int(stats[0])),
+                                max(widest, int(stats[1])))
+        tcap = 4
+        while tcap < np.ceil(widest * slack):
+            tcap <<= 1
+        updates = dict(tile_capacity=_upm(np.ceil(max_tile * slack), 512),
+                       max_tiles_per_gaussian=tcap)
+        if self.raster_backend == "a2a":
+            updates["dest_cap"] = _upm(np.ceil(max_dest * slack), 128)
+        self.set_raster_cfg(dataclasses.replace(rc, **updates))
+        print(f"probed capacities: K={updates['tile_capacity']} (densest "
+              f"tile {max_tile}), tcap={tcap} (widest {widest} tiles)"
+              + (f", dest_cap={updates['dest_cap']} (window {max_dest})"
+                 if "dest_cap" in updates else ""), flush=True)
+        return self.raster_cfg
 
     def _modalities(self):
         """make_train_step's modalities: (name, SceneTensors, pan_mode,
@@ -690,7 +1039,8 @@ class Trainer:
         if phase not in self._steps:
             self._steps[phase] = make_train_step(
                 self._modalities(), self.cfg, self.raster_cfg, phase,
-                self.gauss_opt, self.cam_opt)
+                self.gauss_opt, self.cam_opt,
+                raster_backend=self.raster_backend, mesh=self.mesh)
         return self._steps[phase]
 
     def _maintenance(self, iteration: int):
@@ -702,7 +1052,8 @@ class Trainer:
             d = o.densification
             if (not o.only_prune and iteration > d.densify_from_iter
                     and iteration % d.densification_interval == 0):
-                self._densify(iteration)
+                # moves Gaussians between slots: on the whole model
+                self._on_whole(Trainer._densify, iteration, write_back=True)
             prune_transparent(model, o.min_opacity)
         if (o.opacity_reset_interval >= 0
                 and iteration % o.opacity_reset_interval == 0
@@ -752,10 +1103,11 @@ class Trainer:
         consts = self.consts_by_modality[name]
         wn, hn = consts.native_wh
         new_affines = []
+        model = self.whole().model
         for vi, view in enumerate(views):
             cam = view.camera.replace(affine=consts.affines[vi])
             out = render_view_full(
-                self.model, cam, self.raster_cfg, shading=self.shading,
+                model, cam, self.raster_cfg, shading=self.shading,
                 view_idx=vi, with_sun=cam.has_sun, pan_mode=self.pan_mode)
             gt = view.image
             if gt.shape[0] == 1 and self.cfg.model.repeat_gt:
@@ -777,6 +1129,8 @@ class Trainer:
         render_view_full with its sun, min-pooled and sampled at the
         Gaussians' projected UV (color_ops.py); colour, opacity, scale and
         their Adam moments reset in place."""
+        if self.mesh is not None:
+            return self._on_whole(Trainer.color_reset, write_back=True)
         shadowmaps, uvs = [], []
         for (_, views), (_, _, pan_mode, idx_off) in zip(self.modal_views,
                                                          self._modalities()):
@@ -804,17 +1158,24 @@ class Trainer:
         this iteration's phase with its gates and draws, then the
         maintenance (prune, densify, opacity reset). Returns the step's
         metrics as device tensors (nothing synced by the step)."""
-        if not self._view_stack:
-            self._view_stack = list(self.rng.permutation(
-                len(self.modal_views[0][1])))
-        view_idx = int(self._view_stack.pop())
+        n_views = len(self.modal_views[0][1])
+        vps = min(getattr(self.cfg.optimization, "views_per_step", 1),
+                  n_views)
+        picked = []
+        while len(picked) < max(vps, 1):
+            if not self._view_stack:
+                self._view_stack = list(self.rng.permutation(n_views))
+            picked.append(int(self._view_stack.pop()))
+        view_idx = picked if vps > 1 else picked[0]
         step = self._get_step(phase_for_iteration(self.cfg, iteration))
         gates = make_gates(self.cfg, iteration, self.init_count)
-        # the step's random inputs, one row per modality: the background's
-        # uniform [5], the random camera's standard-normal shear [2]
+        # the step's random inputs, one row per modality (and per view with
+        # views_per_step > 1): the background's uniform [5], the random
+        # camera's standard-normal shear [2]
         g, dev, m = self.generator, self.device, len(self.modal_views)
-        bg_draw = torch.rand(m, 5, generator=g, device=dev)
-        shear_draw = torch.randn(m, 2, generator=g, device=dev)
+        lead = (vps,) if vps > 1 else ()
+        bg_draw = torch.rand(lead + (m, 5), generator=g, device=dev)
+        shear_draw = torch.randn(lead + (m, 2), generator=g, device=dev)
         metrics = step(self.model, self.shading, view_idx, bg_draw,
                        shear_draw, gates)
         self.step += 1
@@ -853,7 +1214,7 @@ class Trainer:
             if iteration % log.tb_log_interval == 0:
                 m = mean_metrics(interval)
                 m["iteration"] = iteration
-                m["alive"] = int(self.model.alive.sum())
+                m["alive"] = self.num_alive()
                 m["it_per_s"] = log.tb_log_interval / max(time.time() - t0,
                                                           1e-9)
                 t0 = time.time()
@@ -880,7 +1241,7 @@ class Trainer:
                             print(f"early stopping at iteration {iteration}")
                             break
             if self.eval_hook and iteration % log.testing_interval == 0:
-                self.eval_hook(self, self.model, iteration)
+                self.eval_hook(self, self.whole().model, iteration)
             if iteration in (log.big_testing_iterations or ()):
                 self.training_report(iteration)
             # mid-run model saves (train_pan.py:622-660)
@@ -893,7 +1254,7 @@ class Trainer:
                 print("baked reference color correction into Gaussian colors")
             if iteration in self.cfg.checkpoint_iterations:
                 path = os.path.join(log.model_path, f"chkpnt{iteration}")
-                save_checkpoint(path, self, iteration)
+                self.save_checkpoint(path, iteration)
                 print(f"checkpoint saved: {path}")
         return self.model
 
@@ -903,6 +1264,9 @@ class Trainer:
         opacity of train view 0's render (no sun) is about ``target_acc``
         (the CLI's ``--opacity-init auto``): a log-space bisection over
         [1e-4, 0.9], ``iters`` renders. Returns the value."""
+        if self.mesh is not None:
+            return self._on_whole(Trainer.calibrate_opacity_init, target_acc,
+                                  iters, write_back=True)
         model = self.model
         cam = self.scene.train_views[0].camera
         saved = model.opacity.detach().clone()
@@ -937,8 +1301,15 @@ class Trainer:
         moments (``optimizer/iteration_N/adam``: g_mu, g_nu, c_mu, c_nu by
         field), each a torch.save file of CPU tensors where JAX writes an
         orbax directory. N is ``iteration``, else the step count. Returns
-        N."""
+        N. With a mesh, the coordinator writes the whole model."""
         it = self.step if iteration is None else int(iteration)
+        if self.mesh is not None:
+            from eogs2_tpu_torch.parallel.distributed import is_coordinator
+
+            view = self.whole()
+            if is_coordinator():
+                Trainer.save_model(view, it)
+            return it
         root = self.cfg.logging.model_path
         alive = self.model.alive.cpu().numpy()
         p = {f: getattr(self.model, f).detach().cpu().numpy()[alive]
@@ -969,8 +1340,29 @@ class Trainer:
     def restore(self, path: str) -> int:
         """Resume from a checkpoint written at checkpoint_iterations, with
         the Adam states (train_pan.py:122-124), in place; returns the saved
-        iteration."""
-        return restore_checkpoint(path, self)
+        iteration. With a mesh, every rank reads the whole file and keeps
+        its shard."""
+        return self._on_whole(lambda t: restore_checkpoint(path, t),
+                              write_back=True)
+
+    def save_checkpoint(self, path: str, iteration: int) -> None:
+        """checkpoint.save_checkpoint of the whole Trainer; with a mesh the
+        coordinator writes it."""
+        from eogs2_tpu_torch.parallel.distributed import is_coordinator
+
+        view = self.whole()
+        if is_coordinator():
+            save_checkpoint(path, view, iteration)
+
+    def num_alive(self) -> int:
+        """The live Gaussians over every shard (one host sync)."""
+        n = self.model.alive.sum()
+        if self.mesh is not None:
+            from eogs2_tpu_torch.parallel.distributed import all_reduce_
+            from eogs2_tpu_torch.parallel.mesh import axis_group
+
+            all_reduce_(n, group=axis_group(self.mesh, "g"))
+        return int(n)
 
     def test_shading_params(self) -> CameraShadingParams:
         """Shading parameters for test cameras: the train cameras' colour
@@ -1004,6 +1396,9 @@ class Trainer:
         ``mae_computer`` set, the Nadir DSM's MAE and its registered DSM and
         |diff| images. ``logger`` (else ``report_logger``) needs
         ``log_scalars`` and ``log_image``. Returns the scalars."""
+        if self.mesh is not None:
+            return self._on_whole(Trainer.training_report, iteration, logger,
+                                  max_images)
         logger = logger if logger is not None else self.report_logger
         test_sh = self.test_shading_params()
         report = {}
@@ -1065,6 +1460,11 @@ class Trainer:
             pretty = {k: round(v, 4) for k, v in report.items()}
             print(f"[ITER {iteration}] report: {pretty}", flush=True)
         return report
+
+
+def _upm(x, m: int) -> int:
+    """x rounded up to a multiple of m, at least m."""
+    return max(m, ((int(x) + m - 1) // m) * m)
 
 
 def mean_metrics(steps) -> Dict[str, float]:

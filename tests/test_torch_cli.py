@@ -9,8 +9,9 @@
     shading JAX's load_shading reads, written in the port's format): the
     Nadir DSM, altitude, flowmatched_altitude and nadir_altitude_diff
     within 1e-4 m (NaN where JAX has NaN), every PNG within one level;
-  * every unported option raises NotImplementedError naming its ROADMAP
-    item, and without a card the CLI raises unless --device is given.
+  * every option that cannot run as given raises (the multi-device
+    options run in tests/test_torch_sharded_train.py), and without a card
+    the CLI raises unless --device is given.
 """
 
 import argparse
@@ -257,17 +258,25 @@ def tiny_scene(tmp_path_factory):
     return d
 
 
-@pytest.mark.parametrize("argv,match", [
-    (["tsdf", "--n-devices", "2"], "item 13"),
-    (["full-eval", "--n-devices", "2"], "item 13"),
-    (["train", "--n-devices", "2"], "item 13"),
-    (["train", "--raster-backend", "a2a"], "item 13"),
-    (["train", "--coordinator", "localhost:1234"], "item 13"),
-    (["train", "--views-per-step", "2"], "item 13"),
-    (["train", "--steps-per-dispatch", "4"], "Deliberate differences"),
+@pytest.mark.parametrize("argv,exc,match", [
+    (["train", "--raster-backend", "a2a"], ValueError, "needs a mesh"),
+    (["full-eval", "--raster-backend", "a2a"], ValueError, "needs a mesh"),
+    (["train", "--coordinator", "localhost:1234"], ValueError,
+     "number of processes"),
+    (["tsdf", "--coordinator", "localhost:1234", "--num-processes", "2"],
+     ValueError, "number of processes"),
+    (["train", "--coordinator", "localhost:1234", "--process-id", "0"],
+     ValueError, "number of processes"),
+    (["train", "--steps-per-dispatch", "4"], NotImplementedError,
+     "Deliberate differences"),
 ])
-def test_unported_options_raise(tiny_scene, tmp_path, argv, match):
-    with pytest.raises(NotImplementedError, match=match):
+def test_unported_options_raise(tiny_scene, tmp_path, argv, exc, match):
+    """The options that cannot run as given raise before any work: the
+    multi-device ones (ported; tests/test_torch_sharded_train.py runs them)
+    where JAX asserts (a2a without a mesh) or a coordinator comes without
+    the group's size or this process's id; --steps-per-dispatch, which has
+    no counterpart."""
+    with pytest.raises(exc, match=match):
         cli.main(argv + [*CPU, "--scene-dir", tiny_scene, "--model-path",
                          str(tmp_path / "run"), "--iterations", "2"])
 

@@ -32,6 +32,13 @@ def _modules():
     return names
 
 
+def test_module_walk_reaches_the_multi_device_package():
+    names = _modules()
+    for mod in ("parallel", "parallel.distributed", "parallel.mesh",
+                "parallel.sharded_raster"):
+        assert f"eogs2_tpu_torch.{mod}" in names, mod
+
+
 def test_forbidden_matcher_respects_the_shared_prefix():
     assert _forbidden("eogs2_tpu") and _forbidden("eogs2_tpu.ops.blend")
     assert _forbidden("jax.numpy") and _forbidden("flax")

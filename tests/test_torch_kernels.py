@@ -474,6 +474,57 @@ def test_k3_equals_k1_k2(cuda, tile_cull):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("rows", [False, True])
+@pytest.mark.parametrize("bands", [2, 4])
+def test_k1_k2_k3_at_band_offset(cuda, rows, bands):
+    """K1/K2 (K3 with rows) on each row band of a frame, at the band's
+    first tile (tile0 != 0, as the a2a path launches them): each band
+    against the plain version at the same tile0 (K1: channels 0-4 2e-4,
+    final_T 2e-5, n_contrib exact; K2: per row 2e-4), and the bands put
+    together bit-equal to the whole frame."""
+    w = h = 128
+    args = _scene(cuda, 2048, seed=3)
+    cov2d = compute_cov2d_direct(args[1], args[2], args[5], w, h)
+    prep = preprocess_gaussians(args[0], None, args[3], args[5], w, h,
+                                cov2d=cov2d)
+    sp = sort_pairs(prep, args[4], w, h, tile_cull=True, eogs=True)
+    row = sort_pairs(prep, args[4], w, h, tile_cull=True, eogs=True,
+                     rows=True)
+    gx = w // 16
+    whole = fused_blend_fwd(sp.pay, sp.tstart, sp.cnt, gx)
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    g_out8 = torch.randn(whole.shape, generator=gen, device=cuda)
+    g_whole = fused_blend_bwd(sp.pay, sp.tstart, sp.cnt, whole, g_out8, gx)
+    fwd, bwd = ((fused_blend_fwd_rows, fused_blend_bwd_rows) if rows
+                else (fused_blend_fwd, fused_blend_bwd))
+    pay = row.pay if rows else sp.pay
+    tpb = whole.shape[0] // bands
+    outs, g_sum = [], torch.zeros_like(g_whole)
+    for b in range(bands):
+        part = slice(b * tpb, (b + 1) * tpb)
+        ts, cn = sp.tstart[part].contiguous(), sp.cnt[part].contiguous()
+        go = g_out8[part].contiguous()
+        k = fwd(pay, ts, cn, gx, b * tpb)
+        p = fused_blend_fwd_plain(sp.pay, ts, cn, gx, b * tpb)
+        torch.testing.assert_close(k[..., :5], p[..., :5], atol=2e-4, rtol=0)
+        torch.testing.assert_close(k[..., 5], p[..., 5], atol=2e-5, rtol=0)
+        assert torch.equal(k[..., 6], p[..., 6])
+        g = bwd(pay, ts, cn, k, go, gx, b * tpb)
+        g = g[:, :NF].t() if rows else g
+        gp = fused_blend_bwd_plain(sp.pay, ts, cn, k, go, gx, b * tpb)
+        band_rows = torch.zeros(sp.pay.shape[1], dtype=torch.bool,
+                                device=cuda)
+        lo, hi = int(ts[0]), int(ts[-1] + cn[-1])
+        band_rows[lo:hi] = True
+        assert _row_err(g[:10, band_rows], gp[:10, band_rows]) < 2e-4
+        outs.append(k)
+        g_sum[:, band_rows] = g[:, band_rows]
+    torch.cuda.synchronize()
+    assert torch.equal(torch.cat(outs), whole)
+    assert torch.equal(g_sum, g_whole)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("mode", ["gather", "sorted"])
 def test_dense_rasterize_on_card_matches_cpu(cuda, mode):
     """The K4 route's image and every input's gradient on the card against

@@ -590,8 +590,13 @@ def test_trainer_trains_and_prunes(scenes):
 
 
 def test_step_raises_for_unported_options(scenes):
+    """The multi-device options are ported; what JAX asserts raises:
+    raster_backend='a2a' without a mesh (eogs2_tpu/train.py:184), and an
+    unknown backend."""
     tr = _trainer(scenes)
     mods = (("msi", tr.consts, None, 0),)
     args = (tr.cfg, tr.raster_cfg, tt.Phase(), tr.gauss_opt, tr.cam_opt)
-    with pytest.raises(NotImplementedError, match="item 13"):
+    with pytest.raises(ValueError, match="needs a mesh"):
         tt.make_train_step(mods, *args, raster_backend="a2a")
+    with pytest.raises(ValueError, match="unknown raster_backend"):
+        tt.make_train_step(mods, *args, raster_backend="pjit")

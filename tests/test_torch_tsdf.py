@@ -260,9 +260,29 @@ def test_mesh_and_obj_are_bit_equal_to_jax(tmp_path, case):
     assert (tmp_path / "t.obj").read_bytes() == (tmp_path / "j.obj").read_bytes()
 
 
-def test_sharded_volume_is_not_ported():
-    with pytest.raises(NotImplementedError, match="item 13"):
-        tt.TSDFVolume(_bounds(), 0.25, 4.0, mesh=object(), device="cpu")
+def test_sharded_volume_is_not_ported(analytic, tmp_path):
+    """TSDFVolume(mesh=...) is ported: over a one-rank gloo group's mesh
+    its volume equals the unsharded one, bit for bit (2 ranks:
+    tests/test_torch_parallel.py)."""
+    import torch.distributed as dist
+
+    from eogs2_tpu_torch.parallel.distributed import init_distributed
+    from eogs2_tpu_torch.parallel.mesh import make_mesh
+
+    _, maps = analytic
+    views = _views(maps, "torch")
+    ref = tt.TSDFVolume(_bounds(), 0.25, 4.0, device="cpu")
+    ref.integrate_views(views, SCALE)
+    assert init_distributed(f"file://{tmp_path}/rendezvous", 1, 0,
+                            device="cpu")
+    try:
+        vol = tt.TSDFVolume(_bounds(), 0.25, 4.0, mesh=make_mesh(1),
+                            slab_voxels=1001, device="cpu")
+        vol.integrate_views(views, SCALE)
+    finally:
+        dist.destroy_process_group()
+    assert torch.equal(vol.tsdf, ref.tsdf)
+    assert torch.equal(vol.weight, ref.weight)
 
 
 def test_cli_tsdf_chain(tmp_path, capsys, monkeypatch):

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Chip smoke test of the PyTorch/CUDA port (eogs2_tpu_torch) on one GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--multicard]
 
 Run from the root of a checkout on a machine with an NVIDIA Hopper card and
 the CUDA toolkit. It builds every kernel from the sources in the checkout,
@@ -157,14 +157,40 @@ the dense routes were added, so that their times stay comparable):
      the fused route (image atol 5e-5, gradients 2e-4 of the largest);
      the sharded TSDF at 0.5 m on the a2a model's 6 train altitude maps
      mirrored south equal to the unsharded one; a gspmd step with the mesh
-     against the one-device step (the same loss; gradients within 2e-4 of
-     the largest, beside two one-device steps' spread: the card's step is
-     not bitwise repeatable; the rotation's, rounding noise at the
-     isotropic init, reported only) and 3 views_per_step=2 steps on a
-     256^2 scene;
- 16. the kernel table line (K1's and K2's launches include phases 10, 11,
-     12, 13 and 15; K3's phase 15's row-payload step), then the last
-     line.
+     against the one-device step (the same loss; every leaf's gradient,
+     the rotation's included, within 2e-4 of its largest value, and two
+     one-device steps bit-equal) and 3 views_per_step=2 steps on a 256^2
+     scene;
+ 16. the multi-device path on four cards (phase_multicard, with 4 or more
+     cards visible; with fewer, a line before the last says it did not
+     run): 4 ranks, one card each, over NCCL on phase 5's scene (written
+     once to an .npz), each holding (a) one a2a main render against the
+     one-card fused render on rank 0 (image atol 5e-5, gradients 2e-4 of
+     the largest, no pair dropped, K1/K2/K3 at its band's tile0 against
+     the plain versions), (b) the a2a Trainer (step 1 twice bit-equal,
+     the row payload's step 1 with the same loss bits, 2 + 10 timed
+     steps, the exchanges' times and bytes, the windows, peak memory, one
+     profiled step; the one-card fused Trainer's steps on rank 0, step
+     1's loss within rel 1e-6), (c) a gspmd step and 3 views_per_step=2
+     steps on a ("d", "g") = 2 x 2 mesh against one card's, (d) the
+     sharded TSDF against the unsharded one bit for bit; then (e) the
+     CLI: train --n-devices 4 --raster-backend a2a, render, tsdf
+     --n-devices 4, eval-dsm, and a one-card restore of the checkpoint;
+ 17. the kernel table line (K1's and K2's launches include phases 10, 11,
+     12, 13, 15 and 16; K3's the row-payload steps of 15 and 16), then the
+     last line.
+
+Beside these, after phase 5 two fused Trainers from one seed take step 1
+(every leaf's gradient bit-equal: the resample's backward is
+deterministic), and the fused and the fast step are timed with the port's
+resample against F.grid_sample's own backward in paired turns
+(resample_ab); after phase 7, phase_resample holds the resample at the sun
+resample's shape against F.grid_sample.
+
+    python3 chip_smoke.py --multicard
+
+runs only phase 1 and phase 16 (and a kernels line of K1-K3 from it); it
+raises when fewer than 4 cards are visible.
 """
 
 from __future__ import annotations
@@ -354,13 +380,13 @@ def time_cuda(fn, reps):
     return start.elapsed_time(end) / reps
 
 
-def k1_work(sp, grid_x, chunk_elems=1 << 25):
+def k1_work(sp, grid_x, chunk_elems=1 << 25, tile0=0):
     """What this K1 call's data needs, counted with fused_blend_fwd_plain's
     arithmetic: each pixel evaluates its tile's pairs front to back up to and
     including the pair at which it stops (all of them when it never
     saturates) and composites its kept live pairs; each tile reads its pairs
-    up to its pixels' deepest stop. Returns (evaluations, composites, pairs
-    read)."""
+    up to its pixels' deepest stop; tile t of the call is tile tile0 + t
+    of the frame. Returns (evaluations, composites, pairs read)."""
     import torch
 
     from eogs2_tpu_torch.ops.blend import ALPHA_EPS, ALPHA_MAX, T_EPS
@@ -377,7 +403,7 @@ def k1_work(sp, grid_x, chunk_elems=1 << 25):
         k_len = int(cnt_host[t0:t1].max())
         if k_len == 0:
             continue
-        ids = torch.arange(t0, t1, device=dev)
+        ids = torch.arange(t0, t1, device=dev) + tile0
         k = torch.arange(k_len, device=dev)
         valid = k[None, :] < cnt[t0:t1, None]
         idx = torch.clamp(tstart[t0:t1, None].long() + k[None, :],
@@ -412,12 +438,12 @@ K1_OPS_PER_EVAL, K1_OPS_PER_COMPOSITE = 17, 14
 K1_BYTES_PER_PAIR = 44  # 11 float32 payload rows
 
 
-def k1_bound(sp, grid_x):
+def k1_bound(sp, grid_x, tile0=0):
     """Least time the card needs for this K1 call: the larger of the bytes
     this data makes it move (the payload up to each tile's deepest stop, the
     tile ranges, out8) over the HBM rate and its FP32 operations over the
     FP32 peak."""
-    evals, comps, read = k1_work(sp, grid_x)
+    evals, comps, read = k1_work(sp, grid_x, tile0=tile0)
     n_tiles = sp.tstart.shape[0]
     bytes_ = K1_BYTES_PER_PAIR * read + 8 * n_tiles + n_tiles * 256 * 8 * 4
     ops = K1_OPS_PER_EVAL * evals + K1_OPS_PER_COMPOSITE * comps
@@ -474,19 +500,20 @@ K2_OPS_PER_PIXEL = 10  # total = acc . g_pix (9), final_T g_ft (1)
 K2_ROW_TOL = 2e-4
 
 
-def k2_bound(sp, grid_x, out8):
+def k2_bound(sp, grid_x, out8, tile0=0):
     """Least time the card needs for this K2 call: the larger of the bytes
     it must move (the payload up to each tile's deepest walk, g_pay written
-    for every pair, out8 and g_out8 read, the tile ranges) over the HBM
-    rate and its FP32 operations over the FP32 peak. Evaluations are the
-    pixels' walk lengths (out8 channel 6), contributions the composites K1
-    made (k1_work)."""
-    _, comps, _ = k1_work(sp, grid_x)
+    for every pair the tiles hold, out8 and g_out8 read, the tile ranges)
+    over the HBM rate and its FP32 operations over the FP32 peak.
+    Evaluations are the pixels' walk lengths (out8 channel 6),
+    contributions the composites K1 made (k1_work); tile t of the call is
+    tile tile0 + t of the frame."""
+    _, comps, _ = k1_work(sp, grid_x, tile0=tile0)
     last = out8[..., 6].double()
     evals = int(last.sum())
     read = int(last.amax(dim=1).sum())
     n_tiles = sp.tstart.shape[0]
-    bytes_ = (K1_BYTES_PER_PAIR * (read + int(sp.pay.shape[1]))
+    bytes_ = (K1_BYTES_PER_PAIR * (read + int(sp.cnt.long().sum()))
               + 2 * n_tiles * 256 * 8 * 4 + 8 * n_tiles)
     ops = (K2_OPS_PER_EVAL * evals + K2_OPS_PER_CONTRIB * comps
            + K2_OPS_PER_PIXEL * n_tiles * 256)
@@ -819,18 +846,26 @@ class capture_blend_calls:
         self.fr.FusedBlend = self.orig
 
 
+def train_scene_arrays(width=1024, scale=142.0, n_views=7, hf_res=768,
+                       n_buildings=24):
+    """The arrays (images, metadata, the ground-truth heightfield) of the
+    synthetic scene of scripts/train_scale.py."""
+    from eogs2_tpu_torch.data.synthetic import make_scene_arrays
+
+    return make_scene_arrays(n_views=n_views, width=width, height=width,
+                             hf_res=hf_res, n_buildings=n_buildings,
+                             seed=11, scale=scale)
+
+
 def train_scene(device, width=1024, scale=142.0, n_views=7, hf_res=768,
                 n_buildings=24):
     """The synthetic scene of scripts/train_scale.py, built once in memory
     and shared by the training phases: (scene, host seconds, its arrays:
     images, metadata, the ground-truth heightfield)."""
-    from eogs2_tpu_torch.data.synthetic import (make_scene_arrays,
-                                                scene_from_arrays)
+    from eogs2_tpu_torch.data.synthetic import scene_from_arrays
 
     t0 = time.perf_counter()
-    arrays = make_scene_arrays(n_views=n_views, width=width, height=width,
-                               hf_res=hf_res, n_buildings=n_buildings,
-                               seed=11, scale=scale)
+    arrays = train_scene_arrays(width, scale, n_views, hf_res, n_buildings)
     scene = scene_from_arrays(arrays, device=device)
     scene_s = time.perf_counter() - t0
     log(dict(phase="train_scene", init_gaussians=len(scene.init_xyz),
@@ -963,6 +998,178 @@ def phase_train(device, scene, scene_s, width=1024, warmup=2, timed=10):
     return k2_at, k1_at, k1_launches, k2_launches, calls[0], tr
 
 
+def leaf_grads(tr):
+    """Every optimised leaf's gradient after a step (the Gaussians' and the
+    shading's), by name."""
+    return {f"{i}.{j}": p.grad for i, opt in enumerate((tr.gauss_opt,
+                                                        tr.cam_opt))
+            for j, p in enumerate(q for g in opt.param_groups
+                                  for q in g["params"])}
+
+
+def segment_sum_ms(g, grid, shape):
+    """Time of torch.segment_reduce summing img_grad's sorted tap entries
+    by target pixel (the other deterministic sum at hand; img_grad adds
+    the runs by a pairwise tree instead)."""
+    import torch
+
+    from eogs2_tpu_torch.ops.resample import _source_index
+
+    c, h, w = shape
+    fx = _source_index(grid[..., 0], w, True)
+    fy = _source_index(grid[..., 1], h, True)
+    x0, y0 = torch.floor(fx), torch.floor(fy)
+    xs = torch.stack([x0, x0 + 1, x0, x0 + 1])
+    ys = torch.stack([y0, y0, y0 + 1, y0 + 1])
+    inb = (xs >= 0) & (xs < w) & (ys >= 0) & (ys < h)
+    tgt = torch.where(inb, ys.clamp(0, h - 1).long() * w
+                      + xs.clamp(0, w - 1).long(), h * w).reshape(-1)
+    tgt_s, order = torch.sort(tgt, stable=True)
+    rows = g.reshape(c, -1).repeat(1, 4)[:, order].t().contiguous()
+    lengths = torch.bincount(tgt_s, minlength=h * w + 1)
+    return time_cuda(lambda: torch.segment_reduce(
+        rows, "sum", lengths=lengths, axis=0, unsafe=True), 10)
+
+
+def phase_resample(device, c=4, h=2048, ho=1024):
+    """The deterministic resample (ops/resample.py) at the sun resample's
+    shape (a c-channel h^2 render sampled on an ho^2 grid, partly outside):
+    forward bit-equal to F.grid_sample's, both gradients within 1e-6 of
+    their largest value of F.grid_sample's (atomic) backward, two backward
+    calls bit-equal; times of the two backward passes, and of
+    aten.grid_sampler_2d_backward with the input gradient masked off
+    (output_mask [False, True]: no atomic add) and on, of img_grad, and of
+    torch.segment_reduce over img_grad's runs."""
+    import torch
+    import torch.nn.functional as F
+
+    from eogs2_tpu_torch.ops.resample import grid_sample, img_grad
+
+    gen = torch.Generator(device=device).manual_seed(5)
+    img = torch.randn((c, h, h), generator=gen, device=device)
+    v, u = torch.meshgrid(*(torch.linspace(-1, 1, ho, device=device),) * 2,
+                          indexing="ij")
+    grid = torch.stack([0.55 * u + 0.12 * v + 0.3,
+                        -0.08 * u + 0.6 * v - 0.45], -1)
+    g = torch.randn((c, ho, ho), generator=gen, device=device)
+
+    def run(fn):
+        x = img.clone().requires_grad_(True)
+        gr = grid.clone().requires_grad_(True)
+        out = fn(x, gr)
+        out.backward(g)
+        return out.detach(), x.grad, gr.grad
+
+    def plain(x, gr):
+        return F.grid_sample(x[None], gr[None], mode="bilinear",
+                             padding_mode="zeros", align_corners=True)[0]
+
+    a, b, ref = run(grid_sample), run(grid_sample), run(plain)
+
+    def rel(x, y):
+        return float((x - y).abs().max() / y.abs().max().clamp_min(1e-30))
+
+    def aten_bwd(mask):
+        return torch.ops.aten.grid_sampler_2d_backward(
+            g[None], img[None], grid[None], 0, 0, True, mask)
+
+    rep = dict(
+        shape=dict(img=[c, h, h], grid=[ho, ho]),
+        forward_bitwise_equal=bool(torch.equal(a[0], ref[0])),
+        img_grad_rel_err=rel(a[1], ref[1]),
+        grid_grad_rel_err=rel(a[2], ref[2]),
+        bitwise_deterministic=all(bool(torch.equal(x, y))
+                                  for x, y in zip(a, b)),
+        grid_grad_masked_equals_full=bool(torch.equal(
+            aten_bwd([False, True])[1], aten_bwd([True, True])[1])),
+        aten_bwd_grid_only_ms=time_cuda(lambda: aten_bwd([False, True]), 10),
+        aten_bwd_both_ms=time_cuda(lambda: aten_bwd([True, True]), 10),
+        img_grad_ms=time_cuda(lambda: img_grad(g, grid, img.shape), 10),
+        segment_reduce_same_runs_ms=segment_sum_ms(g, grid, img.shape),
+        port_fwd_bwd_ms=time_cuda(lambda: run(grid_sample), 10),
+        f_grid_sample_fwd_bwd_ms=time_cuda(lambda: run(plain), 10),
+        tolerance="gradients 1e-6 of the largest (tests/test_torch_"
+                  "resample.py)")
+    log(dict(phase="resample", **rep, **CARD))
+    if not (rep["forward_bitwise_equal"] and rep["bitwise_deterministic"]
+            and rep["grid_grad_masked_equals_full"]
+            and rep["img_grad_rel_err"] <= 1e-6
+            and rep["grid_grad_rel_err"] <= 1e-6):
+        raise AssertionError(f"the resample: {rep}")
+    return rep
+
+
+def phase_repeatable_step(device, scene):
+    """Two fused train-1M-1024 Trainers from the same seed (the same state
+    and draws) take step 1: the loss and every leaf's gradient bit-equal."""
+    import torch
+
+    from eogs2_tpu_torch.rasterizer import RasterizeConfig
+    from eogs2_tpu_torch.train import Trainer
+
+    rcfg = RasterizeConfig(binning_mode="fused", tile_cull=True)
+    runs = []
+    for _ in range(2):
+        tr = Trainer(train_recipe(20), scene, rcfg, device=device).setup()
+        m = tr.train_step(1)
+        runs.append((float(m["loss"]), {k: v.clone() for k, v in
+                                        leaf_grads(tr).items()}))
+        torch.cuda.synchronize()
+    (la, ga), (lb, gb) = runs
+    equal = {k: bool(torch.equal(ga[k], gb[k])) for k in ga}
+    rep = dict(loss_bitwise_equal=la == lb, leaves=len(equal),
+               grads_bitwise_equal=all(equal.values()),
+               differing_leaves=[k for k, v in equal.items() if not v])
+    log(dict(phase="repeatable_step", cell="train-1M-1024", **rep, **CARD))
+    if not (rep["loss_bitwise_equal"] and rep["grads_bitwise_equal"]):
+        raise AssertionError(f"two steps from one state differ: {rep}")
+    return tr
+
+
+def resample_ab(tr, iteration, route, rounds=5):
+    """tr's training step with the port's resample (this tree) and with
+    F.grid_sample's own autograd (the parent's resample, whose backward adds
+    atomically), one step at a time: one warm-up of each, then parent,
+    this, this, parent, `rounds` times; per round this tree's mean less
+    the parent's, and the parent's own spread (PERF.md section 2's paired
+    rule). Every step repeats `iteration`."""
+    import torch
+    import torch.nn.functional as F
+
+    from eogs2_tpu_torch import train as train_mod
+
+    def parent(img, grid, align_corners=True):
+        return F.grid_sample(img[None], grid[None], mode="bilinear",
+                             padding_mode="zeros",
+                             align_corners=align_corners)[0]
+
+    this = train_mod.grid_sample
+    ms = {"parent": [], "this": []}
+    try:
+        for turn in ("parent", "this") + ("parent", "this", "this",
+                                          "parent") * rounds:
+            train_mod.grid_sample = parent if turn == "parent" else this
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            tr.train_step(iteration)
+            torch.cuda.synchronize()
+            ms[turn].append((time.perf_counter() - t) * 1e3)
+    finally:
+        train_mod.grid_sample = this
+    p, t = ms["parent"][1:], ms["this"][1:]
+    diff = [(t[2 * r] + t[2 * r + 1] - p[2 * r] - p[2 * r + 1]) / 2
+            for r in range(rounds)]
+    spread = [abs(p[2 * r] - p[2 * r + 1]) for r in range(rounds)]
+    rep = dict(route=route, parent_ms=p, this_ms=t,
+               parent_median_ms=statistics.median(p),
+               this_median_ms=statistics.median(t),
+               round_diff_ms=diff, parent_spread_ms=spread,
+               median_diff_ms=statistics.median(diff),
+               median_parent_spread_ms=statistics.median(spread))
+    log(dict(phase="resample_ab", **rep, **CARD))
+    return rep
+
+
 # ----------------------------------------------------------------------------
 # K3: the fused route's row payload
 # ----------------------------------------------------------------------------
@@ -1033,13 +1240,14 @@ def phase_k3_small(device, w=256, n=20000):
     return max(errs)
 
 
-def k3_bound(sp, grid_x, out8):
+def k3_bound(sp, grid_x, out8, tile0=0):
     """K1's and K2's bounds with the row payload's bytes: a pair row is 64 B
     (its 44 B of fields lie in two 32-byte sectors of one row)."""
-    fwd, bwd = k1_bound(sp, grid_x), k2_bound(sp, grid_x, out8)
+    fwd = k1_bound(sp, grid_x, tile0)
+    bwd = k2_bound(sp, grid_x, out8, tile0)
     for b, pairs_read, pairs_written in ((fwd, fwd["pairs_read"], 0),
                                          (bwd, bwd["pairs_read"],
-                                          int(sp.pay.shape[1]))):
+                                          int(sp.cnt.long().sum()))):
         extra = (K3_BYTES_PER_PAIR - K1_BYTES_PER_PAIR) * (pairs_read
                                                            + pairs_written)
         b["bytes"] += extra
@@ -1514,7 +1722,9 @@ def phase_train_fast(device, scene, width=1024, warmup=2, timed=10):
         torch.cuda.synchronize()
     bwd_of = {c[0].data_ptr(): c for c in cap.bwd}
     calls = [bwd_of[d.data_ptr()] for d, _ in cap.fwd]  # in render order
-    del cap, bwd_of, tr
+    del cap, bwd_of
+    resample_ab(tr, warmup + timed + 2, "fast")
+    del tr
     if len(calls) != 3:
         raise AssertionError(f"captured {len(calls)} K4 renders, want 3")
     reps, fwd_at, bwd_at = {}, {}, {}
@@ -2426,7 +2636,10 @@ def eogsplus_config(iterations, mode=None):
 
 class record_calls:
     """Within the block, `owner.name` records each call's arguments and
-    result (the original runs as usual)."""
+    result (the original runs as usual). A kernel wrapper counts its
+    launches on its module's name (`fused_blend_fwd.launches += 1`), which
+    is the stand-in's within the block: the stand-in starts from the
+    original's count and hands its count back at the end."""
 
     def __init__(self, owner, name):
         self.owner, self.name, self.calls = owner, name, []
@@ -2439,11 +2652,16 @@ class record_calls:
             self.calls.append((args, kw, out))
             return out
 
+        if hasattr(orig, "launches"):
+            wrapper.launches = orig.launches
+        self.wrapper = wrapper
         setattr(self.owner, self.name, wrapper)
         return self
 
     def __exit__(self, *exc):
         setattr(self.owner, self.name, self.orig)
+        if hasattr(self.orig, "launches"):
+            self.orig.launches = self.wrapper.launches
 
 
 def timed_steps(tr, iterations):
@@ -2932,73 +3150,11 @@ def free_port() -> int:
         return sock.getsockname()[1]
 
 
-def compare_band(sp, rows, gx, band, bands, g_out8):
-    """K1, K2 and K3 on row band `band` of `bands` of sp's frame at tile0 =
-    the band's first tile, against the plain versions at the same tile0:
-    K1 and K3 forward channels 0-4 within ATOL_CH, final_T within ATOL_T,
-    n_contrib exact (K3 bit-equal to K1); K2 per row within K2_ROW_TOL of
-    the row's largest value and bitwise deterministic, K3 backward bit-equal
-    to K2 (the band's rows only: the kernels write the rows of their
-    tiles). Returns (report, K1's out8, K2's rows, the band's row range)."""
-    import torch
-
-    from eogs2_tpu_torch.ops.fused_raster import (NF, fused_blend_bwd,
-                                                  fused_blend_bwd_plain,
-                                                  fused_blend_bwd_rows,
-                                                  fused_blend_fwd,
-                                                  fused_blend_fwd_plain,
-                                                  fused_blend_fwd_rows)
-
-    tpb = sp.tstart.shape[0] // bands
-    t0 = band * tpb
-    part = slice(t0, t0 + tpb)
-    ts, cn = sp.tstart[part].contiguous(), sp.cnt[part].contiguous()
-    go = g_out8[part].contiguous()
-    lo, hi = int(ts[0]), int(ts[-1]) + int(cn[-1])
-    k1 = fused_blend_fwd(sp.pay, ts, cn, gx, t0)
-    p1 = fused_blend_fwd_plain(sp.pay, ts, cn, gx, t0)
-    k3 = fused_blend_fwd_rows(rows.pay, ts, cn, gx, t0)
-    k2 = fused_blend_bwd(sp.pay, ts, cn, k1, go, gx, t0)[:, lo:hi]
-    k2_again = fused_blend_bwd(sp.pay, ts, cn, k1, go, gx, t0)[:, lo:hi]
-    p2 = fused_blend_bwd_plain(sp.pay, ts, cn, k1, go, gx, t0)[:, lo:hi]
-    k3b = fused_blend_bwd_rows(rows.pay, ts, cn, k1, go, gx, t0)[lo:hi, :NF]
-    torch.cuda.synchronize()
-    scale = p2.abs().amax(dim=1)
-    live = scale > 0
-    err_rows = (k2 - p2).abs().amax(dim=1) / scale.clamp_min(1e-30)
-    rep = dict(
-        band=band, tile0=t0, tiles=tpb, pairs=hi - lo,
-        k1_max_abs_err_ch0_4=float((k1[..., :5] - p1[..., :5]).abs().max()),
-        k1_max_abs_err_final_t=float((k1[..., 5] - p1[..., 5]).abs().max()),
-        k1_n_contrib_mismatches=int((k1[..., 6] != p1[..., 6]).sum()),
-        k3_fwd_bitwise_equal_k1=bool(torch.equal(k3, k1)),
-        k2_max_row_rel_err=float(err_rows[live].max()) if bool(live.any())
-        else 0.0,
-        k2_max_abs_err=float((k2 - p2).abs().max()),
-        k2_bitwise_deterministic=bool(torch.equal(k2, k2_again)),
-        k3_bwd_bitwise_equal_k2=bool(torch.equal(k3b.t(), k2)),
-        k1_ms=time_cuda(lambda: fused_blend_fwd(sp.pay, ts, cn, gx, t0), 10),
-        k2_ms=time_cuda(lambda: fused_blend_bwd(sp.pay, ts, cn, k1, go, gx,
-                                                t0), 10))
-    if not (rep["k1_max_abs_err_ch0_4"] <= ATOL_CH
-            and rep["k1_max_abs_err_final_t"] <= ATOL_T
-            and rep["k1_n_contrib_mismatches"] == 0
-            and rep["k3_fwd_bitwise_equal_k1"]
-            and rep["k2_max_row_rel_err"] <= K2_ROW_TOL
-            and rep["k2_bitwise_deterministic"]
-            and rep["k3_bwd_bitwise_equal_k2"]
-            and bool((k2[~live] == 0).all())
-            and bool(torch.isfinite(k1).all())
-            and bool(torch.isfinite(k2).all())):
-        raise AssertionError(f"K1/K2/K3 at a band offset disagree: {rep}")
-    return rep, k1, k2, (lo, hi)
-
-
 def phase_bands(device, bands=4, n=1_000_000, width=1024):
     """K1/K2/K3 at a band offset on serve-1M-1024's view render: its sorted
     ranges cut into `bands` row bands, each launched at tile0 = its first
-    tile and held against the plain versions (compare_band); the bands put
-    together bit-equal to the whole frame's K1 out8 and K2 rows."""
+    tile and held against the plain versions (compare_at_band); the bands
+    put together bit-equal to the whole frame's K1 out8 and K2 rows."""
     import torch
 
     from eogs2_tpu_torch.ops.fused_raster import (fused_blend_bwd,
@@ -3016,7 +3172,6 @@ def phase_bands(device, bands=4, n=1_000_000, width=1024):
         prep = preprocess_gaussians(model.xyz, None, model.get_opacity(), aff,
                                     width, width, cov2d=cov2d)
         sp = sort_pairs(prep, feats, width, width, eogs=True)
-        rows = sort_pairs(prep, feats, width, width, eogs=True, rows=True)
     del model, prep, cov2d, feats
     gx = width // 16
     whole = fused_blend_fwd(sp.pay, sp.tstart, sp.cnt, gx)
@@ -3025,11 +3180,15 @@ def phase_bands(device, bands=4, n=1_000_000, width=1024):
     g_whole = fused_blend_bwd(sp.pay, sp.tstart, sp.cnt, whole, g_out8, gx)
     reps, outs = [], []
     g_bands = torch.zeros_like(g_whole)
+    tpb = sp.tstart.shape[0] // bands
     for b in range(bands):
-        rep, k1, k2, (lo, hi) = compare_band(sp, rows, gx, b, bands, g_out8)
-        reps.append(rep)
+        part = slice(b * tpb, (b + 1) * tpb)
+        rep, k1, k2, rows = compare_at_band(
+            sp.pay, sp.tstart[part].contiguous(), sp.cnt[part].contiguous(),
+            gx, b * tpb, g_out8[part].contiguous(), timing=True)
+        reps.append(dict(band=b, **rep))
         outs.append(k1)
-        g_bands[:, lo:hi] = k2
+        g_bands[:, rows] = k2
     torch.cuda.synchronize()
     out = dict(bands_k1_bitwise_equal_whole=bool(torch.equal(
         torch.cat(outs), whole)),
@@ -3040,6 +3199,11 @@ def phase_bands(device, bands=4, n=1_000_000, width=1024):
     if not all(out.values()):
         raise AssertionError(f"the bands differ from the whole frame: {out}")
     return reps
+
+
+# the 256^2 scene of the gspmd and views_per_step checks
+SMALL_SCENE = dict(n_views=5, width=256, height=256, hf_res=256,
+                   n_buildings=6, seed=3, scale=25.0)
 
 
 def small_trainer(scene, device, mesh=None, backend="gspmd", **opt):
@@ -3251,14 +3415,9 @@ def phase_multidevice(device, arrays, warmup=2, timed=10, band_n=1_000_000,
             raise AssertionError(f"sharded TSDF: {tsdf_rep}")
 
         # gspmd with the mesh, and views_per_step = 2, on a 256^2 scene
-        small = scene_from_arrays(make_scene_arrays(
-            n_views=5, width=small_width, height=small_width, hf_res=256,
-            n_buildings=6,
-            seed=3, scale=25.0), device=device)
-        # the card's step is not bitwise repeatable (the resample's
-        # backward adds atomically), so the gradients are held at the step
-        # tolerance (2e-4 of the largest) beside two plain steps' spread;
-        # not the rotation's: at the isotropic init it is rounding noise
+        small = scene_from_arrays(make_scene_arrays(**dict(
+            SMALL_SCENE, width=small_width, height=small_width)),
+            device=device)
         plain, again, meshed = (small_trainer(small, device, mesh=m)
                                 for m in (None, None, mesh))
         steps = [t.train_step(1) for t in (plain, again, meshed)]
@@ -3281,8 +3440,7 @@ def phase_multidevice(device, arrays, warmup=2, timed=10, band_n=1_000_000,
                       views_per_step_2_loss=[float(m["loss"])
                                              for m in vps_steps])
         if loss_err > 1e-6 * abs(float(steps[0]["loss"])) or max(
-                v for f, v in gspmd_err.items() if f != "rotation") \
-                > K2_ROW_TOL:
+                gspmd_err.values()) > K2_ROW_TOL or any(spread.values()):
             raise AssertionError(f"gspmd step with the mesh: {others}")
         log(dict(phase="multidevice_checks", render_a2a_vs_fused=render,
                  tsdf_south_sharded=tsdf_rep, **others,
@@ -3292,12 +3450,824 @@ def phase_multidevice(device, arrays, warmup=2, timed=10, band_n=1_000_000,
         dist.destroy_process_group()
 
 
-def main() -> int:
+# ----------------------------------------------------------------------------
+# the multi-device path on four cards: one rank per card over NCCL
+# ----------------------------------------------------------------------------
+
+MULTICARD_RANKS = 4
+
+
+def save_scene_arrays(arrays, path):
+    """make_scene_arrays' scene in one .npz: the images as arrays, the rest
+    (metadata, names, heightfield, texture) pickled."""
+    import pickle
+
+    names = sorted(arrays.images)
+    rest = pickle.dumps((arrays._replace(images={}), names))
+    np.savez(path, rest=np.frombuffer(rest, np.uint8),
+             **{f"image{i}": arrays.images[k] for i, k in enumerate(names)})
+
+
+def load_scene_arrays(path):
+    import pickle
+
+    with np.load(path) as z:
+        rest, names = pickle.loads(z["rest"].tobytes())
+        return rest._replace(images={k: z[f"image{i}"]
+                                     for i, k in enumerate(names)})
+
+
+class time_exchanges:
+    """Within the block, each all_to_all_single of the a2a path
+    (parallel.sharded_raster._exchange) is timed by CUDA events on the
+    calling stream (until the stream may use what it received); with
+    `count`, the real pairs of each forward window are counted too.
+    `calls` holds (payload width: 13 forward, 11 backward, bytes sent,
+    start event, end event, per-window counts or None)."""
+
+    def __init__(self, count=False):
+        self.count, self.calls = count, []
+
+    def __enter__(self):
+        import torch
+
+        from eogs2_tpu_torch.parallel import sharded_raster as sr
+
+        self.sr, orig = sr, sr._exchange
+        self.orig = orig
+        timed = torch.cuda.is_available()
+
+        def spy(x, s):
+            if s.n_shards == 1:
+                return orig(x, s)
+            ev = ([torch.cuda.Event(enable_timing=True) for _ in range(2)]
+                  if timed else [None, None])
+            if timed:
+                ev[0].record()
+            out = orig(x, s)
+            if timed:
+                ev[1].record()
+            counts = (torch.isfinite(x[..., 1]).sum(1)
+                      if self.count and x.shape[-1] == sr.NX else None)
+            self.calls.append((x.shape[-1], x.numel() * x.element_size(),
+                               *ev, counts))
+            return out
+
+        sr._exchange = spy
+        return self
+
+    def __exit__(self, *exc):
+        self.sr._exchange = self.orig
+
+
+def walked_rows(tstart, cnt):
+    """The payload rows the tiles walk: [tstart[t], tstart[t] + cnt[t])."""
     import torch
 
+    cnt = cnt.long()
+    base = torch.repeat_interleave(tstart.long(), cnt)
+    first = torch.repeat_interleave(torch.cumsum(cnt, 0) - cnt, cnt)
+    return base + torch.arange(base.shape[0], device=base.device) - first
+
+
+def compare_at_band(pay, tstart, cnt, gx, tile0, g_out8, out8=None,
+                    timing=False):
+    """K1, K2 and K3 on one band of a frame's tiles (tile t of the call is
+    tile tile0 + t of the frame) against the plain versions at the same
+    tile0: K1 channels 0-4 within ATOL_CH, final_T within ATOL_T,
+    n_contrib exact (and equal to `out8`, the render's own, when given);
+    K2 per walked row within K2_ROW_TOL of the row's largest value and
+    bitwise deterministic; K3 (the row payload) bit-equal to K1/K2. With
+    `timing`, the kernels' times, the plain versions' and the bounds.
+    Returns (report, K1's out8, K2's walked rows, their indices)."""
+    import torch
+
+    from eogs2_tpu_torch.ops.fused_raster import (NF, NFR, SortedPairs,
+                                                  fused_blend_bwd,
+                                                  fused_blend_bwd_plain,
+                                                  fused_blend_bwd_rows,
+                                                  fused_blend_fwd,
+                                                  fused_blend_fwd_plain,
+                                                  fused_blend_fwd_rows)
+
+    k1 = fused_blend_fwd(pay, tstart, cnt, gx, tile0)
+    p1 = fused_blend_fwd_plain(pay, tstart, cnt, gx, tile0)
+    rows = walked_rows(tstart, cnt)
+    k2 = fused_blend_bwd(pay, tstart, cnt, k1, g_out8, gx, tile0)[:, rows]
+    k2b = fused_blend_bwd(pay, tstart, cnt, k1, g_out8, gx, tile0)[:, rows]
+    p2 = fused_blend_bwd_plain(pay, tstart, cnt, k1, g_out8, gx,
+                               tile0)[:, rows]
+    pay_r = torch.nn.functional.pad(pay.t(), (0, NFR - NF)).contiguous()
+    k3 = fused_blend_fwd_rows(pay_r, tstart, cnt, gx, tile0)
+    k3b = fused_blend_bwd_rows(pay_r, tstart, cnt, k1, g_out8, gx,
+                               tile0)[rows, :NF]
+    scale = p2.abs().amax(dim=1)
+    live = scale > 0
+    err = (k2 - p2).abs().amax(dim=1) / scale.clamp_min(1e-30)
+    rep = dict(
+        tile0=int(tile0), tiles=int(tstart.shape[0]),
+        pairs=int(rows.shape[0]),
+        k1_max_abs_err_ch0_4=float((k1[..., :5] - p1[..., :5]).abs().max()),
+        k1_max_abs_err_final_t=float((k1[..., 5] - p1[..., 5]).abs().max()),
+        k1_n_contrib_mismatches=int((k1[..., 6] != p1[..., 6]).sum()),
+        k1_equals_render_out8=out8 is None or bool(torch.equal(k1, out8)),
+        k2_max_row_rel_err=float(err[live].max()) if bool(live.any())
+        else 0.0,
+        k2_max_abs_err=float((k2 - p2).abs().max()),
+        k2_bitwise_deterministic=bool(torch.equal(k2, k2b)),
+        k3_fwd_bitwise_equal_k1=bool(torch.equal(k3, k1)),
+        k3_bwd_bitwise_equal_k2=bool(torch.equal(k3b.t(), k2)))
+    if not (rep["k1_max_abs_err_ch0_4"] <= ATOL_CH
+            and rep["k1_max_abs_err_final_t"] <= ATOL_T
+            and rep["k1_n_contrib_mismatches"] == 0
+            and rep["k1_equals_render_out8"]
+            and rep["k2_max_row_rel_err"] <= K2_ROW_TOL
+            and rep["k2_bitwise_deterministic"]
+            and rep["k3_fwd_bitwise_equal_k1"]
+            and rep["k3_bwd_bitwise_equal_k2"]
+            and bool((k2[~live] == 0).all())
+            and bool(torch.isfinite(k2).all())):
+        raise AssertionError(f"K1/K2/K3 at a band offset disagree: {rep}")
+    if timing:
+        sp = SortedPairs(pay, tstart, cnt, None)
+        k3f, k3w = k3_bound(sp, gx, k1, tile0)
+        rep.update(
+            k3_fwd=dict(ms=time_cuda(lambda: fused_blend_fwd_rows(
+                pay_r, tstart, cnt, gx, tile0), 10), **k3f),
+            k3_bwd=dict(ms=time_cuda(lambda: fused_blend_bwd_rows(
+                pay_r, tstart, cnt, k1, g_out8, gx, tile0), 10), **k3w))
+        rep.update(
+            k1=dict(ms=time_cuda(lambda: fused_blend_fwd(
+                pay, tstart, cnt, gx, tile0), 10),
+                plain_ms=time_cuda(lambda: fused_blend_fwd_plain(
+                    pay, tstart, cnt, gx, tile0), 1),
+                **k1_bound(sp, gx, tile0)),
+            k2=dict(ms=time_cuda(lambda: fused_blend_bwd(
+                pay, tstart, cnt, k1, g_out8, gx, tile0), 10),
+                plain_ms=time_cuda(lambda: fused_blend_bwd_plain(
+                    pay, tstart, cnt, k1, g_out8, gx, tile0), 1),
+                **k2_bound(sp, gx, k1, tile0)))
+    return rep, k1, k2, rows
+
+
+def counted(module, name):
+    """A stand-in for the kernel wrapper `module.name` that counts its calls
+    as the wrapper counts its launches, on the module's name (on the CPU
+    the wrappers take their plain versions and count nothing; the CPU
+    rehearsal of the launch gates counts the calls)."""
+    fn = getattr(module, name)
+
+    def wrapper(*args, **kw):
+        getattr(module, name).launches += 1
+        return fn(*args, **kw)
+
+    wrapper.launches = 0
+    return wrapper
+
+
+def _rel_err(a, b):
+    return float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
+
+
+def multicard_rank(rank, n, scene_path, opts):
+    """One rank of phase_multicard, in a process group of n ranks that the
+    caller has started (NCCL with one card a rank, or gloo on the CPU for
+    the rehearsal); every rank loads the same scene (the data model is
+    host-replicated). Each gate raises. Returns this rank's report (rank
+    0's holds the comparisons with one card).
+
+    opts: warmup, timed (the a2a Trainer's steps), tsdf_vox, and
+    optionally small_scene (make_scene_arrays' arguments of the gspmd and
+    views_per_step scene; SMALL_SCENE by default); on CUDA the kernels are
+    timed.
+
+      (a) one main render through rasterize_a2a against rasterize on the
+          fused route on rank 0 alone (no group), from the same state:
+          image within atol 5e-5, every input's per-Gaussian gradient
+          within 2e-4 of its largest value, no pair dropped, K1/K2 launched
+          at each rank's band tile0 (not 0 on ranks 1..n-1), and held
+          there against their plain versions;
+      (b) the a2a Trainer (train-1M-1024's recipe, capacities by
+          probe_capacities): step 1 twice from the same state, bit-equal
+          on every rank; step 1 on the row payload (K3) with the column
+          step's loss bits; warmup + timed steps, each ending in a
+          synchronize and a barrier, with the all_to_all_single times,
+          K1/K2 launches and the peak memory; the windows of one more
+          step; on rank 0 alone the one-card fused Trainer's warmup +
+          timed steps from the same seed: step 1's loss within rel 1e-6;
+      (c) a gspmd step against one card's on a small scene (loss rel
+          1e-6, every leaf's gradient within 2e-4 of its largest), then 3
+          views_per_step=2 steps on a ("d", "g") mesh against one card's
+          (losses rel 1e-6);
+      (d) the sharded TSDF on the a2a model's train altitude maps, mirrored
+          south, equal bit for bit to rank 0's unsharded volume."""
+    import torch
+    import torch.distributed as dist
+
+    from eogs2_tpu_torch.data.synthetic import (make_scene_arrays,
+                                                scene_from_arrays)
+    from eogs2_tpu_torch.eval import tsdf
+    from eogs2_tpu_torch.ops import fused_raster as fr
+    from eogs2_tpu_torch.parallel.distributed import (all_gather_cat,
+                                                      all_processes_allclose)
+    from eogs2_tpu_torch.parallel.mesh import axis_group, make_mesh
+    from eogs2_tpu_torch.parallel.sharded_raster import rasterize_a2a
+    from eogs2_tpu_torch.pipeline import render_view_full
+    from eogs2_tpu_torch.rasterizer import RasterizeConfig, rasterize
+    from eogs2_tpu_torch.renderer import gaussian_features
+    from eogs2_tpu_torch.train import Trainer
+
+    cuda = dist.get_backend() == "nccl"
+    dev = (torch.device("cuda", torch.cuda.current_device()) if cuda
+           else torch.device("cpu"))
+    warmup, timed = opts["warmup"], opts["timed"]
+    if not cuda:  # the plain versions count nothing: count their calls
+        for k in ("fused_blend_fwd", "fused_blend_bwd",
+                  "fused_blend_fwd_rows", "fused_blend_bwd_rows"):
+            setattr(fr, k, counted(fr, k))
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+
+    def barrier():
+        sync()
+        dist.barrier()
+
+    def every_rank(ok):
+        """ok on every rank (a MIN all_reduce of one flag)."""
+        t = torch.tensor([int(bool(ok))], device=dev)
+        dist.all_reduce(t, op=dist.ReduceOp.MIN)
+        return bool(t.item())
+
+    def gathered(x):
+        return all_gather_cat(x.detach().contiguous(), group)
+
+    t_rank = time.perf_counter()
+    arrays = load_scene_arrays(scene_path)
+    scene = scene_from_arrays(arrays, device=dev)
+    mesh = make_mesh(n)
+    group = axis_group(mesh, "g")
+    rcfg = RasterizeConfig(binning_mode="fused", tile_cull=True)
+    steps_cfg = warmup + timed + 3
+    rep = dict(rank=rank, device=str(dev),
+               rank_card=torch.cuda.get_device_name(dev) if cuda else "cpu")
+
+    def a2a_trainer(**cfg_kw):
+        tr = Trainer(train_recipe(steps_cfg), scene, rcfg, device=dev,
+                     mesh=mesh, raster_backend="a2a").setup()
+        probed = tr.probe_capacities()
+        if cfg_kw:
+            tr.set_raster_cfg(dataclasses.replace(probed, **cfg_kw))
+        return tr, probed
+
+    # (a) one main render: rasterize_a2a at n ranks against rasterize
+    t = time.perf_counter()
+    tr_a, probed = a2a_trainer()
+    model = tr_a.model
+    cam = scene.train_views[0].camera
+    w = cam.width
+    inputs = [x.detach().clone().requires_grad_(True) for x in
+              (model.xyz, model.get_scaling(), model.rotation,
+               model.get_opacity())]
+    with torch.no_grad():
+        feats = gaussian_features(model, cam)
+    feats.requires_grad_(True)
+    bg = torch.tensor([0.3, 0.5, 0.2, -1.0, 0.0], device=dev)
+    aff = cam.resize_canvas(w, w).affine
+    gen = torch.Generator(device=dev).manual_seed(1)
+    cot = torch.rand((5, w, w), generator=gen, device=dev)
+    cfg_r = dataclasses.replace(tr_a.raster_cfg, eogs_features=False)
+    with record_calls(fr, "fused_blend_fwd") as k1c, \
+            record_calls(fr, "fused_blend_bwd") as k2c:
+        out = rasterize_a2a(mesh, *inputs, feats, aff, bg, w, w, cfg_r,
+                            alive=model.alive)
+        (out.image * cot).sum().backward()
+    sync()
+    img_a2a = out.image.detach()
+    dropped = int(out.dropped_pairs)
+    g_a2a = [gathered(x.grad) for x in inputs + [feats]]
+    (pay, tstart, cnt, gx, tile0), _, out8 = k1c.calls[0]
+    band, *_ = compare_at_band(pay, tstart, cnt, gx, tile0,
+                               k2c.calls[0][0][4], out8=out8, timing=cuda)
+    del pay, tstart, cnt, out8
+    tile0s = [(int(a[0][4]), int(b[0][6]))
+              for a, b in zip(k1c.calls, k2c.calls)]
+    whole = tr_a.whole()
+    del out, inputs, feats, k1c, k2c
+    render = None
+    if rank == 0:
+        wm = whole.model
+        ref_in = [x.detach().clone().requires_grad_(True) for x in
+                  (wm.xyz, wm.get_scaling(), wm.rotation, wm.get_opacity())]
+        with torch.no_grad():
+            rfeats = gaussian_features(wm, cam)
+        rfeats.requires_grad_(True)
+        ref = rasterize(*ref_in, rfeats, aff, bg, w, w, cfg_r, alive=wm.alive)
+        (ref.image * cot).sum().backward()
+        sync()
+        grad_err = {name: _rel_err(a, x.grad) for name, a, x in zip(
+            ("xyz", "scaling", "rotation", "opacity", "features"), g_a2a,
+            ref_in + [rfeats])}
+        render = dict(
+            image_max_abs_err=float((img_a2a - ref.image.detach()).abs()
+                                    .max()),
+            image_bitwise_equal=bool(torch.equal(img_a2a,
+                                                 ref.image.detach())),
+            grad_max_rel_err=grad_err, dropped_pairs=dropped,
+            tolerance="image atol 5e-5, gradients 2e-4 of the largest "
+                      "(tests/test_sharded.py, tests/test_golden.py)")
+        del ref, ref_in, rfeats
+        if not (render["image_max_abs_err"] <= 5e-5
+                and max(grad_err.values()) <= K2_ROW_TOL and dropped == 0):
+            raise AssertionError(f"a2a render against fused: {render}")
+    del whole, g_a2a, img_a2a, cot
+    if rank > 0 and (band["tile0"] == 0 or any(a == 0 or b == 0
+                                               for a, b in tile0s)):
+        raise AssertionError(f"rank {rank} launched at tile0 {tile0s}")
+    rep.update(render_a2a_vs_fused=render, band=band, tile0s=tile0s,
+               dest_cap=probed.dest_cap,
+               tile_capacity=probed.tile_capacity,
+               max_tiles_per_gaussian=probed.max_tiles_per_gaussian,
+               render_check_s=time.perf_counter() - t)
+    barrier()
+
+    # (b) the a2a Trainer: step 1 twice from one state, and on the rows
+    t = time.perf_counter()
+    m_a = tr_a.train_step(1)
+    loss_a, grads_a = m_a["loss"].clone(), {
+        k: v.clone() for k, v in leaf_grads(tr_a).items()}
+    del tr_a, m_a
+    gc.collect()
+    tr, _ = a2a_trainer()
+    m1 = tr.train_step(1)
+    same = bool(torch.equal(m1["loss"], loss_a)) and all(
+        torch.equal(v, grads_a[k]) for k, v in leaf_grads(tr).items())
+    rep["step1_repeat_bitwise_equal"] = same
+    all_same = every_rank(same)
+    for k in ("fused_blend_fwd_rows", "fused_blend_bwd_rows"):
+        getattr(fr, k).launches = 0
+    tr_rows, _ = a2a_trainer(payload_col=False)
+    m_rows = tr_rows.train_step(1)
+    sync()
+    k3_launches = (fr.fused_blend_fwd_rows.launches,
+                   fr.fused_blend_bwd_rows.launches)
+    rows_equal = bool(torch.equal(m_rows["loss"], loss_a))
+    del tr_rows, m_rows, grads_a
+    gc.collect()
+    rep.update(k3_step_launches=k3_launches, k3_loss_bitwise_equal=rows_equal)
+    if not all_same:
+        raise AssertionError("two a2a steps from one state differ on a rank "
+                             f"(rank {rank}: {same})")
+    if k3_launches != (3, 3) or not rows_equal:
+        raise AssertionError(f"the a2a row-payload step: K3 {k3_launches}, "
+                             f"loss equal {rows_equal}")
+
+    losses = [float(m1["loss"])]
+    for it in range(2, warmup + 1):
+        losses.append(float(tr.train_step(it)["loss"]))
+    barrier()
+    if cuda:
+        torch.cuda.reset_peak_memory_stats(dev)
+    for k in ("fused_blend_fwd", "fused_blend_bwd"):
+        getattr(fr, k).launches = 0
+    step_ms, steps = [], []
+    with time_exchanges() as ex:
+        for it in range(warmup + 1, warmup + timed + 1):
+            barrier()
+            t0 = time.perf_counter()
+            steps.append(tr.train_step(it))
+            barrier()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+    launches = (fr.fused_blend_fwd.launches, fr.fused_blend_bwd.launches)
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30 if cuda else None
+    losses += [float(m["loss"]) for m in steps]
+    check_metrics(steps, "a2a at n ranks")
+    if launches != (3 * timed, 3 * timed):
+        raise AssertionError(f"a2a launches {launches}, want {3 * timed} "
+                             f"each")
+    dropped = max(int(m["dropped_pairs"]) for m in steps)
+    max_dest = max(int(m["max_dest_count"]) for m in steps)
+    if dropped or max_dest > tr.raster_cfg.dest_cap:
+        raise AssertionError(f"a2a dropped {dropped} pairs (window "
+                             f"{max_dest}, dest_cap {tr.raster_cfg.dest_cap})")
+    exchange = None
+    if cuda:
+        fwd = [c for c in ex.calls if c[0] == 13]
+        bwd = [c for c in ex.calls if c[0] != 13]
+        exchange = dict(
+            fwd_ms={name: [c[2].elapsed_time(c[3]) for c in fwd[i::3]]
+                    for i, name in enumerate(TRAIN_RENDERS)},
+            bwd_ms_in_call_order=[[c[2].elapsed_time(c[3])
+                                   for c in bwd[3 * s:3 * s + 3]]
+                                  for s in range(timed)],
+            fwd_bytes_sent=fwd[0][1], bwd_bytes_sent=bwd[0][1])
+    del ex
+    # the windows of one more step (counted, not timed)
+    with time_exchanges(count=True) as ex:
+        tr.train_step(warmup + timed + 1)
+    sync()
+    counts = [c[4] for c in ex.calls if c[4] is not None]
+    del ex
+    # one profiled step on rank 0 (the others step along unprofiled)
+    profile = None
+    barrier()
+    if cuda and rank == 0:
+        profile = profile_run(lambda: tr.train_step(warmup + timed + 2))
+    else:
+        tr.train_step(warmup + timed + 2)
+    barrier()
+    windows = {}
+    for name, c in zip(TRAIN_RENDERS, counts):
+        mat = gathered(c[None])  # [source rank, destination band]
+        windows[name] = dict(max=int(mat.max()),
+                             mean=float(mat.double().mean()),
+                             per_source_and_band=mat.tolist())
+    rep.update(a2a=dict(
+        step_ms=step_ms, ms_per_step=statistics.median(step_ms),
+        losses=losses, k1_launches=launches[0], k2_launches=launches[1],
+        peak_mem_gib=peak, dest_cap=tr.raster_cfg.dest_cap,
+        max_dest_count=max_dest, dropped_pairs=dropped, exchange=exchange,
+        windows=windows, profile=profile, num_pairs_main=float(np.mean(
+            [float(m["num_pairs"]) for m in steps]))),
+        a2a_s=time.perf_counter() - t)
+    barrier()
+
+    # (b) the one-card fused Trainer on rank 0 alone, the same seed
+    if rank == 0:
+        t = time.perf_counter()
+        one = Trainer(train_recipe(steps_cfg), scene, rcfg,
+                      device=dev).setup()
+        one_losses = [float(one.train_step(it)["loss"])
+                      for it in range(1, warmup + 1)]
+        one_ms, one_steps = (timed_steps(one, range(warmup + 1,
+                                                    warmup + timed + 1))
+                             if cuda else ([], [one.train_step(it) for it in
+                                                range(warmup + 1,
+                                                      warmup + timed + 1)]))
+        one_losses += [float(m["loss"]) for m in one_steps]
+        del one, one_steps
+        gc.collect()
+        rel = [abs(a - b) / abs(b) for a, b in zip(losses, one_losses)]
+        rep["one_card_fused"] = dict(
+            ms_per_step=statistics.median(one_ms) if one_ms else None,
+            step_ms=one_ms, losses=one_losses, loss_rel_diff=rel,
+            a2a_over_fused=(rep["a2a"]["ms_per_step"]
+                            / statistics.median(one_ms)) if one_ms else None,
+            s=time.perf_counter() - t)
+        if rel[0] > 1e-6:
+            raise AssertionError(f"a2a step 1's loss against one card's: "
+                                 f"{rel[0]}")
+    barrier()
+
+    # (d) the sharded TSDF on the a2a model's train altitude maps, south
+    t = time.perf_counter()
+    whole = tr.whole()
+    md0 = arrays.metadatas[0]["model"]
+    maps = {}
+    for v in scene.train_views:
+        alt = render_view_full(whole.model, v.camera,
+                               tr.raster_cfg)["altitude"]
+        a = v.camera.affine.detach().cpu().numpy()
+        maps[v.name] = (a[:, :3], a[:, 3], np.asarray(alt, np.float32))
+    del whole, tr
+    gc.collect()
+    maps = south_maps(maps)
+    views = tsdf.TsdfViews(*(torch.as_tensor(np.stack(
+        [m[k] for m in maps.values()]).astype(np.float32), device=dev)
+        for k in range(3)))
+    maps_equal = all_processes_allclose(views.altitudes)
+    vb = np.stack([np.asarray(md0["min_world"]),
+                   np.asarray(md0["max_world"])], axis=1) * md0["scale"]
+    vol = tsdf.TSDFVolume(vb, opts["tsdf_vox"], 4.0, mesh=mesh, device=dev)
+    vol.integrate_views(views, md0["scale"])
+    vol.apply_prior()
+    tsdf_rep = None
+    if rank == 0:
+        one = tsdf.TSDFVolume(vb, opts["tsdf_vox"], 4.0, device=dev)
+        one.integrate_views(views, md0["scale"])
+        one.apply_prior()
+        tsdf_rep = dict(
+            voxels=int(np.prod(one.shape)), maps_equal_on_ranks=maps_equal,
+            weighted_share=float((one.weight > 0).float().mean()),
+            sharded_bitwise_equal=bool(torch.equal(one.tsdf, vol.tsdf)
+                                       and torch.equal(one.weight,
+                                                       vol.weight)))
+        del one
+        if not (tsdf_rep["sharded_bitwise_equal"] and maps_equal
+                and tsdf_rep["weighted_share"] > 0.1):
+            raise AssertionError(f"sharded TSDF: {tsdf_rep}")
+    del vol, views, maps
+    gc.collect()
+    rep.update(tsdf_south_sharded=tsdf_rep, tsdf_s=time.perf_counter() - t)
+    barrier()
+
+    # (c) gspmd against one card, then views_per_step=2 over ("d", "g")
+    t = time.perf_counter()
+    small_kw = opts.get("small_scene", SMALL_SCENE)
+    small = scene_from_arrays(make_scene_arrays(**small_kw), device=dev)
+    meshed = small_trainer(small, dev, mesh=mesh)
+    m_g = meshed.train_step(1)
+    g_g = {f: gathered(getattr(meshed.model, f).grad) for f in FIELDS}
+    del meshed
+    dg = make_mesh(n, axes=("d", "g"))
+    vps = small_trainer(small, dev, mesh=dg, views_per_step=2)
+    vps_loss = [float(vps.train_step(it)["loss"]) for it in range(1, 4)]
+    del vps
+    gspmd = None
+    if rank == 0:
+        plain = small_trainer(small, dev)
+        m_p = plain.train_step(1)
+        grad_err = {f: _rel_err(g_g[f], getattr(plain.model, f).grad)
+                    for f in FIELDS}
+        loss_rel = abs(float(m_g["loss"]) - float(m_p["loss"])) \
+            / abs(float(m_p["loss"]))
+        del plain
+        one_vps = small_trainer(small, dev, views_per_step=2)
+        one_vps_loss = [float(one_vps.train_step(it)["loss"])
+                        for it in range(1, 4)]
+        del one_vps
+        vps_rel = [abs(a - b) / abs(b) for a, b in zip(vps_loss,
+                                                       one_vps_loss)]
+        gspmd = dict(width=small_kw["width"], loss_rel_diff=loss_rel,
+                     grad_max_rel_err=grad_err,
+                     views_per_step_2_mesh=dict(zip(dg.mesh_dim_names,
+                                                    dg.shape)),
+                     views_per_step_2_losses=vps_loss,
+                     one_card_views_per_step_2_losses=one_vps_loss,
+                     views_per_step_2_loss_rel_diff=vps_rel)
+        if not (loss_rel <= 1e-6 and max(grad_err.values()) <= K2_ROW_TOL
+                and max(vps_rel) <= 1e-6):
+            raise AssertionError(f"gspmd at {n} ranks against one card: "
+                                 f"{gspmd}")
+    rep.update(gspmd=gspmd, gspmd_s=time.perf_counter() - t,
+               rank_s=time.perf_counter() - t_rank)
+    barrier()
+    return rep
+
+
+def _multicard_entry(rank, n, url, tmp, scene_path, opts):
+    """A rank of phase_multicard: NCCL on card `rank`, multicard_rank, its
+    report written to tmp/rank<rank>.json."""
+    import torch.distributed as dist
+
+    from eogs2_tpu_torch.parallel.distributed import init_distributed
+
+    init_distributed(url, n, rank, device="cuda")
+    try:
+        rep = multicard_rank(rank, n, scene_path, opts)
+        with open(os.path.join(tmp, f"rank{rank}.json"), "w") as f:
+            json.dump(rep, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def phase_multicard_cli(device, n, width=256, n_views=9, scale=25.0,
+                        iterations=20, tile_capacity=4096,
+                        max_tiles_per_gaussian=1024):
+    """The CLI's group options at n ranks, from this process: make-synthetic
+    of full-eval-256's scene, train --n-devices n --raster-backend a2a
+    --raster-mode fused for `iterations` iterations with a save and a
+    checkpoint at the last, render on one device, tsdf --n-devices n,
+    eval-dsm of the Nadir and the TSDF DSMs on one device. The run
+    directory must hold one PLY and one checkpoint (the coordinator's),
+    both MAEs must be finite, and a one-device Trainer.restore of the
+    checkpoint must hold the saved (joined) model, bit for bit, with the
+    PLY's rows."""
+    import tempfile
+
+    import torch
+
+    from eogs2_tpu_torch import cli
+    from eogs2_tpu_torch.config import baseogs
+    from eogs2_tpu_torch.io.ply import load_gaussians_ply
+    from eogs2_tpu_torch.rasterizer import RasterizeConfig
+    from eogs2_tpu_torch.scene import load_scene
+    from eogs2_tpu_torch.train import Trainer
+
+    dev = ["--device", device.type]
+    run = StageRunner(device, cli.main)
+    with image_libraries_blocked(), tempfile.TemporaryDirectory() as tmp:
+        sdir, runp = os.path.join(tmp, "scene"), os.path.join(tmp, "run")
+        run("make_synthetic", [
+            "make-synthetic", *dev, "--out", sdir, "--n-views", str(n_views),
+            "--width", str(width), "--height", str(width), "--scale",
+            str(scale)])
+        run("train", [
+            "train", *dev, "--scene-dir", sdir, "--model-path", runp,
+            "--preset", "baseogs", "--n-devices", str(n),
+            "--raster-backend", "a2a", "--raster-mode", "fused",
+            "--iterations", str(iterations), "--save-iterations",
+            str(iterations), "--checkpoint-every", str(iterations)])
+        files = [os.path.relpath(os.path.join(d, f), runp)
+                 for d, _, fs in os.walk(runp) for f in fs]
+        plys = [f for f in files if f.endswith(".ply")]
+        ckpts = [f for f in files if os.path.basename(f).startswith("chkpnt")]
+        rargs = ["--scene-dir", sdir, "--model-path", runp,
+                 "--tile-capacity", str(tile_capacity),
+                 "--max-tiles-per-gaussian", str(max_tiles_per_gaussian)]
+        run("render", ["render", *dev, *rargs])
+        run("tsdf", ["tsdf", *dev, "--scene-dir", sdir, "--model-path", runp,
+                     "--n-devices", str(n)])
+        out = os.path.join(runp, "test_opNone", f"ours_{iterations}")
+        maes = {}
+        for name, pred in (("nadir", os.path.join(out, "dsm", "Nadir.tif")),
+                           ("tsdf", os.path.join(out, "tsdf", "dsm.tif"))):
+            run(f"eval_dsm_{name}", [
+                "eval-dsm", *dev, "--pred", pred, "--gt-heightfield",
+                os.path.join(sdir, "gt_heightfield.npy"), "--scale",
+                str(scale)])
+            maes[name] = json.loads(run.printed[f"eval_dsm_{name}"]
+                                    .strip().splitlines()[-1])["mae"]
+        # the checkpoint into a one-device Trainer, built as the CLI builds
+        # it (the CLI's default seed 1337 for the init cloud)
+        ckpt = os.path.join(runp, f"chkpnt{iterations}")
+        saved = torch.load(ckpt, map_location="cpu", weights_only=True)
+        fresh = Trainer(baseogs(sdir), load_scene(
+            sdir, images_msi_path=os.path.join(sdir, "images"),
+            load_pan=False, seed=1337, device=device),
+            RasterizeConfig(binning_mode="fused"), device=device).setup()
+        restored_it = fresh.restore(ckpt)
+        alive = saved["aux"]["alive"].numpy()
+        ply = load_gaussians_ply(os.path.join(
+            runp, "point_cloud", f"iteration_{iterations}",
+            "point_cloud.ply"))
+        restored = dict(
+            iteration=restored_it, adam_step=fresh.step,
+            params_equal=all(torch.equal(getattr(fresh.model, f).detach()
+                                         .cpu(), saved["params"][f])
+                             for f in FIELDS + ("features_rest",)),
+            alive_equal=bool(torch.equal(fresh.model.alive.cpu(),
+                                         saved["aux"]["alive"])),
+            ply_rows_equal=all(np.array_equal(
+                ply[f].reshape(int(alive.sum()), -1),
+                getattr(fresh.model, f).detach().cpu().numpy()[alive]
+                .reshape(int(alive.sum()), -1)) for f in FIELDS))
+        del fresh, saved
+        gc.collect()
+        libs = image_libraries_blocked.loaded()
+    rep = dict(stage_s=run.stages, plys=plys, checkpoints=ckpts, maes=maes,
+               restored=restored, image_libraries=libs)
+    if not (len(plys) == 1 and len(ckpts) == 1
+            and all(np.isfinite(v) for v in maes.values())
+            and restored["iteration"] == iterations
+            and restored["adam_step"] == iterations
+            and restored["params_equal"] and restored["alive_equal"]
+            and restored["ply_rows_equal"] and not libs):
+        raise AssertionError(f"the CLI at {n} ranks: {rep}")
+    return rep
+
+
+def phase_multicard(device, arrays=None, n=MULTICARD_RANKS, warmup=2,
+                    timed=10, tsdf_vox=0.5):
+    """The multi-device path at n ranks, one card each, over NCCL (cell
+    train-1M-1024-a2a-4card). This process builds the scene's arrays (or
+    takes phase 5's), writes them once to an .npz in a temporary directory,
+    frees its cached device memory and starts n ranks with
+    torch.multiprocessing.spawn (a file rendezvous beside the .npz); each
+    runs multicard_rank. Then phase_multicard_cli from this process.
+    Returns (the ranks' reports, the CLI's report)."""
+    import tempfile
+
+    import torch
+    import torch.multiprocessing as mp
+
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        t = time.perf_counter()
+        if arrays is None:
+            arrays = train_scene_arrays()
+        scene_path = os.path.join(tmp, "scene.npz")
+        save_scene_arrays(arrays, scene_path)
+        del arrays
+        write_s = time.perf_counter() - t
+        gc.collect()
+        torch.cuda.empty_cache()
+        opts = dict(warmup=warmup, timed=timed, tsdf_vox=tsdf_vox)
+        t = time.perf_counter()
+        mp.spawn(_multicard_entry, args=(n, f"file://{tmp}/rendezvous", tmp,
+                                         scene_path, opts), nprocs=n)
+        ranks_s = time.perf_counter() - t
+        reps = []
+        for r in range(n):
+            with open(os.path.join(tmp, f"rank{r}.json")) as f:
+                reps.append(json.load(f))
+    cli_rep = phase_multicard_cli(device, n)
+    r0 = reps[0]
+    a2a = r0["a2a"]
+    log(dict(phase="multicard", cell="train-1M-1024-a2a-4card", ranks=n,
+             backend="nccl", cards=[r["rank_card"] for r in reps],
+             recipe="baseogs, sun and random camera from iteration 1",
+             config="fused, tile_cull; a2a on a ('g',) mesh of "
+                    f"{n} ranks, one card each",
+             a2a_ms_per_step=a2a["ms_per_step"],
+             one_card_fused_ms_per_step=r0["one_card_fused"]["ms_per_step"],
+             a2a_over_one_card_fused=r0["one_card_fused"]["a2a_over_fused"],
+             peak_mem_gib=[r["a2a"]["peak_mem_gib"] for r in reps],
+             dest_cap=a2a["dest_cap"], max_dest_count=a2a["max_dest_count"],
+             windows={k: dict(max=v["max"], mean=v["mean"])
+                      for k, v in a2a["windows"].items()},
+             tile0s=[r["tile0s"] for r in reps],
+             band_k1_ms=[r["band"]["k1"]["ms"] for r in reps],
+             band_k2_ms=[r["band"]["k2"]["ms"] for r in reps],
+             scene_write_s=write_s, ranks_s=ranks_s,
+             phase_s=time.perf_counter() - t_phase, **CARD))
+    for r in reps:
+        log(dict(phase="multicard_rank", **r, **CARD))
+    log(dict(phase="multicard_cli", **cli_rep, **CARD))
+    return reps, cli_rep
+
+
+def kernel_entry(name, source, replaces, launches, at, **extra):
+    """One kernel's entry of the kernels line: its source, the TPU kernel
+    it replaces, its launches on the main path, `extra` (errors, per-step
+    sums) and `at`'s time, plain version's time and bound."""
+    return dict(name=name, route="cuda",
+                source=f"eogs2_tpu_torch/csrc/{source}",
+                replaces=f"eogs2_tpu/ops/{replaces}", launches=launches,
+                **extra, ms=at["ms"], plain_ms=at["plain_ms"],
+                bound_ms=at["bound_ms"], bound_by=at["bound_by"],
+                library_ms=None)
+
+
+def multicard_entries(reps):
+    """The four-card run's K1, K2 and K3 numbers for the kernels line: the
+    launches of the ranks' main path summed (the timed a2a steps; K3's
+    row-payload step), and the slowest rank's band time with that band's
+    plain time and bound."""
+    def at(key, plain_key=None):
+        r = max(reps, key=lambda r: r["band"][key]["ms"])["band"]
+        b = r[key]
+        return dict(ms=b["ms"], plain_ms=r[plain_key or key]["plain_ms"],
+                    bound_ms=b["bound_ms"], bound_by=b["bound_by"],
+                    tile0=r["tile0"])
+
+    launches = dict(
+        k1=sum(r["a2a"]["k1_launches"] for r in reps),
+        k2=sum(r["a2a"]["k2_launches"] for r in reps),
+        k3_fwd=sum(r["k3_step_launches"][0] for r in reps),
+        k3_bwd=sum(r["k3_step_launches"][1] for r in reps))
+    return launches, dict(k1=at("k1"), k2=at("k2"),
+                          k3_fwd=at("k3_fwd", "k1"),
+                          k3_bwd=at("k3_bwd", "k2"))
+
+
+def multicard_only(device, card_count):
+    """`--multicard`: the build, phase_multicard and a kernels line of the
+    four-card path's kernels (K1, K2, K3; K4 is not on it)."""
+    log(dict(phase="cards", nvidia_smi=subprocess.run(
+        ["nvidia-smi", "--query-gpu=index,name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()))
+    phase_build()
+    reps, _ = phase_multicard(device)
+    launches, at = multicard_entries(reps)
+    bands = [r["band"] for r in reps]
+    err1 = max(max(b["k1_max_abs_err_ch0_4"], b["k1_max_abs_err_final_t"])
+               for b in bands)
+    row2 = max(b["k2_max_row_rel_err"] for b in bands)
+    abs2 = max(b["k2_max_abs_err"] for b in bands)
+
+    log({"kernels": [
+        kernel_entry("fused_blend_fwd (K1)", "fused_blend_fwd.cu",
+                     "fused_raster.py:532", launches["k1"], at["k1"],
+                     at_band_tile0=at["k1"]["tile0"],
+                     max_abs_err=err1, ranks=card_count),
+        kernel_entry("fused_blend_bwd (K2)", "fused_blend_bwd.cu",
+                     "fused_raster.py:614", launches["k2"], at["k2"],
+                     at_band_tile0=at["k2"]["tile0"],
+                     max_abs_err=abs2, max_row_rel_err=row2,
+                     ranks=card_count),
+        kernel_entry("fused_blend_fwd_rows (K3 forward)",
+                     "fused_blend_fwd.cu", "fused_raster.py:236",
+                     launches["k3_fwd"], at["k3_fwd"],
+                     at_band_tile0=at["k3_fwd"]["tile0"], max_abs_err=err1,
+                     bitwise_equal_k1=all(b["k3_fwd_bitwise_equal_k1"]
+                                          for b in bands), ranks=card_count),
+        kernel_entry("fused_blend_bwd_rows (K3 backward)",
+                     "fused_blend_bwd.cu", "fused_raster.py:317",
+                     launches["k3_bwd"], at["k3_bwd"],
+                     at_band_tile0=at["k3_bwd"]["tile0"], max_abs_err=abs2,
+                     max_row_rel_err=row2,
+                     bitwise_equal_k2=all(b["k3_bwd_bitwise_equal_k2"]
+                                          for b in bands), ranks=card_count),
+    ]})
+
+
+def main(argv=None) -> int:
+    import torch
+
+    argv = sys.argv[1:] if argv is None else list(argv)
+    unknown = [a for a in argv if a != "--multicard"]
+    if unknown:
+        raise SystemExit(f"chip_smoke: unknown arguments {unknown}")
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
         return 1
+    cards = torch.cuda.device_count()
+    if "--multicard" in argv and cards < MULTICARD_RANKS:
+        raise RuntimeError(f"chip_smoke --multicard needs {MULTICARD_RANKS} "
+                           f"cards; {cards} visible")
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     import eogs2_tpu_torch  # noqa: F401  (fails outside a checkout)
 
@@ -3306,6 +4276,12 @@ def main() -> int:
     name, limit = (s.strip() for s in line.split(",", 1))
     CARD.update(card=name, power_limit=limit)
     device = torch.device("cuda")
+    if "--multicard" in argv:
+        multicard_only(device, cards)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": cards}}), flush=True)
+        return 0
 
     # the fused route's phases first, in the order and state they had
     # before the dense routes were added, so their times stay comparable
@@ -3321,8 +4297,13 @@ def main() -> int:
         device, captured, tr, k1_at["main"], k2)
     del captured, tr
     gc.collect()  # the trainer's reference cycles hold device memory
+    tr = phase_repeatable_step(device, scene)
+    resample_ab(tr, 2, "fused")
+    del tr
+    gc.collect()
     k3_small_err = phase_k3_small(device)
     k4_small = phase_k4_small(device)
+    phase_resample(device)
     k4_at, k4f_at, k4b_at, k4f_launches, k4b_launches = phase_train_fast(
         device, scene)
     gc.collect()
@@ -3338,6 +4319,19 @@ def main() -> int:
     full_k1, full_k2, full_k1_rep, full_k2_rep = phase_full_eval(device)
     phase_safe_small(device)
     bands, a2a, k3_a2a = phase_multidevice(device, arrays)
+    gc.collect()
+    four = dict(k1=0, k2=0, k3_fwd=0, k3_bwd=0)
+    multicard = {}
+    if cards >= MULTICARD_RANKS:
+        reps, _ = phase_multicard(device, arrays)
+        four, at = multicard_entries(reps)
+        multicard = {k: dict(four_card_launches=four[k],
+                             four_card_band_ms=at[k]["ms"],
+                             four_card_band_tile0=at[k]["tile0"])
+                     for k in four}
+    else:
+        print(f"phase_multicard needs {MULTICARD_RANKS} cards; {cards} "
+              f"visible: not run", flush=True)
     del arrays
     gc.collect()
     tile0 = dict(
@@ -3350,24 +4344,16 @@ def main() -> int:
 
     view = per_render["view"]
 
-    def entry(name, source, replaces, launches, at, **errs):
-        return dict(name=name, route="cuda",
-                    source=f"eogs2_tpu_torch/csrc/{source}",
-                    replaces=f"eogs2_tpu/ops/{replaces}", launches=launches,
-                    **errs, ms=at["ms"], plain_ms=at["plain_ms"],
-                    bound_ms=at["bound_ms"], bound_by=at["bound_by"],
-                    library_ms=None)
-
     def per_step(at):  # a training step's three renders
         return dict(train_step_ms={k: r["ms"] for k, r in at.items()},
                     train_step_bound_ms={k: r["bound_ms"]
                                          for k, r in at.items()})
 
     log({"kernels": [
-        entry("fused_blend_fwd (K1)", "fused_blend_fwd.cu",
+        kernel_entry("fused_blend_fwd (K1)", "fused_blend_fwd.cu",
               "fused_raster.py:532", serve_launches + k1_launches
               + recipe_k1 + cli_k1 + eplus_k1 + full_k1
-              + a2a["k1_launches"], view,
+              + a2a["k1_launches"] + four["k1"], view,
               max_abs_err=max(max(r["max_abs_err_ch0_4"],
                                   r["max_abs_err_final_t"])
                               for r in (*per_render.values(),
@@ -3377,10 +4363,10 @@ def main() -> int:
                                        for r in (*per_render.values(),
                                                  *k1_at.values(),
                                                  eplus_k1_rep, full_k1_rep)),
-              **per_step(k1_at), **tile0),
-        entry("fused_blend_bwd (K2)", "fused_blend_bwd.cu",
+              **per_step(k1_at), **tile0, **multicard.get("k1", {})),
+        kernel_entry("fused_blend_bwd (K2)", "fused_blend_bwd.cu",
               "fused_raster.py:614", k2_launches + recipe_k2 + cli_k2
-              + eplus_k2 + full_k2 + a2a["k2_launches"], k2,
+              + eplus_k2 + full_k2 + a2a["k2_launches"] + four["k2"], k2,
               max_abs_err=max(r["max_abs_err"]
                               for r in (*k2_at.values(), eplus_k2_rep,
                                         full_k2_rep)),
@@ -3388,24 +4374,26 @@ def main() -> int:
                                                   for r in (*k2_at.values(),
                                                             eplus_k2_rep,
                                                             full_k2_rep))),
-              **per_step(k2_at), **tile0),
-        entry("fused_blend_fwd_rows (K3 forward)", "fused_blend_fwd.cu",
-              "fused_raster.py:236", k3_launches["k3_fwd"] + k3_a2a[0],
-              k3_fwd,
+              **per_step(k2_at), **tile0, **multicard.get("k2", {})),
+        kernel_entry("fused_blend_fwd_rows (K3 forward)",
+              "fused_blend_fwd.cu", "fused_raster.py:236",
+              k3_launches["k3_fwd"] + k3_a2a[0] + four["k3_fwd"], k3_fwd,
               max_abs_err=max(k3["max_abs_err_ch0_4"],
                               k3["max_abs_err_final_t"], k3_small_err),
               bitwise_equal_k1=k3["fwd_bitwise_equal_k1"]
               and all(b["k3_fwd_bitwise_equal_k1"] for b in bands),
-              tile0_bands=tile0["tile0_bands"], a2a_step_launches=k3_a2a[0]),
-        entry("fused_blend_bwd_rows (K3 backward)", "fused_blend_bwd.cu",
-              "fused_raster.py:317", k3_launches["k3_bwd"] + k3_a2a[1],
-              k3_bwd,
+              tile0_bands=tile0["tile0_bands"], a2a_step_launches=k3_a2a[0],
+              **multicard.get("k3_fwd", {})),
+        kernel_entry("fused_blend_bwd_rows (K3 backward)",
+              "fused_blend_bwd.cu", "fused_raster.py:317",
+              k3_launches["k3_bwd"] + k3_a2a[1] + four["k3_bwd"], k3_bwd,
               max_abs_err=k2["max_abs_err"],
               max_row_rel_err=k2["max_row_rel_err"],
               bitwise_equal_k2=k3["bwd_bitwise_equal_k2"]
               and all(b["k3_bwd_bitwise_equal_k2"] for b in bands),
-              tile0_bands=tile0["tile0_bands"], a2a_step_launches=k3_a2a[1]),
-        entry("blend_forward (K4 forward)", "blend_tiles_fwd.cu",
+              tile0_bands=tile0["tile0_bands"], a2a_step_launches=k3_a2a[1],
+              **multicard.get("k3_bwd", {})),
+        kernel_entry("blend_forward (K4 forward)", "blend_tiles_fwd.cu",
               "blend_pallas.py:134", k4f_launches + k4_serve_launches,
               k4f_at["main"],
               max_abs_err=max(k4_small["max_abs_err_ch0_4"],
@@ -3421,7 +4409,7 @@ def main() -> int:
               serve_ms={k: r["ms"] for k, r in k4_serve_at.items()},
               serve_bound_ms={k: r["bound_ms"]
                               for k, r in k4_serve_at.items()}),
-        entry("blend_backward (K4 backward)", "blend_tiles_bwd.cu",
+        kernel_entry("blend_backward (K4 backward)", "blend_tiles_bwd.cu",
               "blend_pallas.py:194", k4b_launches, k4b_at["main"],
               max_abs_err=max(r["bwd_max_abs_err"] for r in k4_at.values()),
               max_row_rel_err=max(k4_small["bwd_max_row_rel_err"],

@@ -17,6 +17,7 @@ import numpy as np
 import torch
 
 from eogs2_tpu_torch.device import resolve_device
+from eogs2_tpu_torch.observability import host_read
 
 
 @dataclasses.dataclass(frozen=True)
@@ -61,8 +62,9 @@ class AffineCamera:
     def sun_camera(self, f: int = 2):
         """Sun-POV camera with an f-times footprint (affine_cameras.py:350-370):
         S @ A_sun with S = diag(1/f, 1/f, 1); returns (camera, cam2virt)."""
-        s = torch.tensor([1.0 / f, 1.0 / f, 1.0], dtype=self.affine.dtype,
-                         device=self.device)
+        s = host_read(lambda: torch.tensor(
+            [1.0 / f, 1.0 / f, 1.0], dtype=self.affine.dtype,
+            device=self.device), "camera.sun_scale")
         cam = self.replace(affine=self.sun_affine * s[:, None],
                            width=self.width * f, height=self.height * f)
         return cam, s[:, None] * self.camera_to_sun
@@ -102,10 +104,13 @@ class AffineCamera:
         sx = self.width / new_width
         sy = self.height / new_height
         kw = dict(dtype=self.affine.dtype, device=self.device)
-        row_scale = torch.tensor([sx, sy, 1.0], **kw)
+        row_scale = host_read(lambda: torch.tensor([sx, sy, 1.0], **kw),
+                              "camera.row_scale")
         # pixel = ((u+1)*W - 1)/2 ; ((u'+1)*W' - 1)/2 == pixel
         # => u' = s*u + (s - 1),  s = W/W'
-        inter_shift = torch.tensor([sx - 1.0, sy - 1.0, 0.0], **kw)
+        inter_shift = host_read(
+            lambda: torch.tensor([sx - 1.0, sy - 1.0, 0.0], **kw),
+            "camera.inter_shift")
         new_affine = self.affine * row_scale[:, None]
         new_affine = torch.cat(
             [new_affine[:, :3], (new_affine[:, 3] + inter_shift)[:, None]], 1

@@ -93,6 +93,17 @@ def _check_train_options(args):
             f"port (ROADMAP \"Deliberate differences\")")
 
 
+def _trace_steps(spec: str):
+    """--trace-steps "A:B" -> (A, B), 1 <= A <= B."""
+    try:
+        first, last = (int(x) for x in spec.split(":"))
+    except ValueError:
+        raise ValueError(f"--trace-steps takes A:B, got {spec!r}") from None
+    if not 1 <= first <= last:
+        raise ValueError(f"--trace-steps {spec}: need 1 <= A <= B")
+    return first, last
+
+
 def _in_group() -> bool:
     import torch.distributed as dist
 
@@ -130,9 +141,10 @@ def cmd_train(args):
 
     mesh = _join_group(args)
     _check_train_options(args)
+    trace = _trace_steps(args.trace_steps) if args.trace_steps else None
     from eogs2_tpu_torch.config import PRESETS
     from eogs2_tpu_torch.eval.mae import MaeComputer
-    from eogs2_tpu_torch.observability import MetricsLogger
+    from eogs2_tpu_torch.observability import MetricsLogger, trace_iterations
     from eogs2_tpu_torch.pipeline import evaluate_dsm_mae
     from eogs2_tpu_torch.rasterizer import RasterizeConfig
     from eogs2_tpu_torch.train import Trainer
@@ -192,6 +204,9 @@ def cmd_train(args):
 
     tr.log_hook = log_hook
     tr.report_logger = logger  # big_testing_iterations report target
+    if trace:
+        tr.train_step = trace_iterations(tr.train_step, *trace,
+                                         args.model_path)
     if args.save_iterations:
         tr.cfg.save_iterations = tuple(
             int(x) for x in args.save_iterations.split(",") if x
@@ -437,6 +452,12 @@ def build_parser():
     ]:
         sp = sub.add_parser(name)
         common(sp)
+        if name in ("train", "full-eval"):
+            sp.add_argument(
+                "--trace-steps", default="", metavar="A:B",
+                help="profile training iterations A-B (torch.profiler and "
+                     "the program's spans) and write trace.json and "
+                     "spans.json under --model-path")
         if name == "full-eval":
             sp.add_argument("--export-mesh", action="store_true")
         if name == "video":

@@ -25,6 +25,7 @@ import torch
 import torch.nn.functional as F
 
 from eogs2_tpu_torch import losses as L
+from eogs2_tpu_torch.observability import host_read
 from eogs2_tpu_torch.ops.resample import grid_sample
 
 
@@ -62,9 +63,14 @@ def phase_correlation_shift(img_ref, img_mov):
         return torch.where(torch.abs(denom) > 1e-12, 0.5 * (c_m - c_p) / denom,
                            0.0)
 
-    cy = corr[py, px]
-    sub_y = parabola(corr[(py - 1) % h, px], cy, corr[(py + 1) % h, px])
-    sub_x = parabola(corr[py, (px - 1) % w], cy, corr[py, (px + 1) % w])
+    # indexing by the peak's two device scalars waits for the card twice
+    cy = host_read(lambda: corr[py, px], "flow.peak", syncs=2)
+    sub_y = host_read(lambda: parabola(corr[(py - 1) % h, px], cy,
+                                       corr[(py + 1) % h, px]),
+                      "flow.sub_y", syncs=4)
+    sub_x = host_read(lambda: parabola(corr[py, (px - 1) % w], cy,
+                                       corr[py, (px + 1) % w]),
+                      "flow.sub_x", syncs=4)
     dy = torch.where(py > h // 2, py - h, py).to(torch.float32) + sub_y
     dx = torch.where(px > w // 2, px - w, px).to(torch.float32) + sub_x
     # corr peak at (dy,dx) means b shifted by (dy,dx) aligns with a:

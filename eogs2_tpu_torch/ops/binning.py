@@ -19,6 +19,7 @@ from typing import NamedTuple
 
 import torch
 
+from eogs2_tpu_torch.observability import host_read
 from eogs2_tpu_torch.ops.projection import TILE
 
 
@@ -55,7 +56,8 @@ def sort_emission(gid, tile, depth, n_tiles: int):
     the sort's permutation, tstart/cnt [n_tiles] int32 each tile's range."""
     key = (tile << 32) | depth_key(depth)[gid]
     skey, perm = torch.sort(key, stable=True)
-    lengths = torch.bincount(gid, minlength=depth.shape[0])
+    lengths = host_read(lambda: torch.bincount(gid, minlength=depth.shape[0]),
+                        "sort.lengths", syncs=2)
     bounds = torch.searchsorted(
         skey >> 32, torch.arange(n_tiles + 1, device=skey.device))
     tstart = bounds[:-1].to(torch.int32)

@@ -52,6 +52,7 @@ from typing import NamedTuple
 
 import torch
 
+from eogs2_tpu_torch.observability import host_read, span
 from eogs2_tpu_torch.ops.binning import grid_dims, sort_emission
 from eogs2_tpu_torch.ops.blend import ALPHA_EPS, ALPHA_MAX, T_EPS
 from eogs2_tpu_torch.ops.pair_pipeline import emission_sum, emit_pairs
@@ -120,9 +121,10 @@ def sort_pairs(prep: Preprocessed, features, width: int, height: int,
     grid_x, grid_y = grid_dims(width, height)
     keys = Preprocessed(*(x.detach() for x in prep))
     depth = -features[:, 3].detach() if eogs else keys.depth
-    gid, tile = emit_pairs(keys, grid_x, tile_cull=tile_cull)
-    gid, perm, lengths, tstart, cnt = sort_emission(
-        gid, tile, depth, grid_x * grid_y)
+    with span("raster.emission"):
+        gid, tile = emit_pairs(keys, grid_x, tile_cull=tile_cull)
+        gid, perm, lengths, tstart, cnt = sort_emission(
+            gid, tile, depth, grid_x * grid_y)
     cols = [prep.mean2d[:, 0], prep.mean2d[:, 1], prep.conic[:, 0],
             prep.conic[:, 1], prep.conic[:, 2], prep.opacity]
     if eogs:
@@ -142,7 +144,7 @@ def _tile_chunks(cnt, chunk_elems: int):
     """(t0, t1, k_len) ranges of tiles whose padded pair-pixel block holds
     at most ~chunk_elems values; k_len is the chunk's longest range."""
     n_tiles = cnt.shape[0]
-    cnt_host = cnt.cpu()
+    cnt_host = host_read(cnt.cpu, "blend_plain.cnt")
     kmax = max(int(cnt_host.max()), 1) if n_tiles else 1
     tc = max(1, chunk_elems // (P * kmax))
     for t0 in range(0, n_tiles, tc):
@@ -438,6 +440,7 @@ class FusedBlend(torch.autograd.Function):
     the row payload (``rows``); local tile t is global tile tile0 + t."""
 
     @staticmethod
+    @span("raster.blend")
     def forward(ctx, pay, tstart, cnt, grid_x, rows=False, tile0=0):
         fwd = fused_blend_fwd_rows if rows else fused_blend_fwd
         out8 = fwd(pay, tstart, cnt, grid_x, tile0)
@@ -446,6 +449,7 @@ class FusedBlend(torch.autograd.Function):
         return out8
 
     @staticmethod
+    @span("raster.blend_bwd")
     def backward(ctx, g_out8):
         pay, tstart, cnt, out8 = ctx.saved_tensors
         bwd = fused_blend_bwd_rows if ctx.rows else fused_blend_bwd
@@ -479,8 +483,11 @@ def rasterize_fused(prep: Preprocessed, features, width: int, height: int,
     if tile_cull:
         # demand under culling is the live pair count (dead tiles are not
         # demand), per Gaussian its live tiles
-        num_pairs = torch.tensor(sp.gid.shape[0], device=dev)
-        active = torch.bincount(sp.gid, minlength=tiles.shape[0])
+        num_pairs = host_read(lambda: torch.tensor(sp.gid.shape[0],
+                                                   device=dev),
+                              "raster.num_pairs")
+        active = host_read(lambda: torch.bincount(
+            sp.gid, minlength=tiles.shape[0]), "raster.active", syncs=2)
         bulk_max = active.max() if active.numel() else zero
     else:
         num_pairs = tiles.sum()

@@ -31,6 +31,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from eogs2_tpu_torch.observability import host_read
 from eogs2_tpu_torch.ops.binning import bin_gaussians, tile_pair_indices
 from eogs2_tpu_torch.ops.projection import TILE
 
@@ -106,7 +107,7 @@ def emit_pairs(prep, grid_x: int, tile_cull: bool = False,
     if tcap is not None:
         tiles = tiles.clamp_max(tcap)
     n = tiles.shape[0]
-    total = int(tiles.sum()) if n else 0
+    total = host_read(tiles.sum(), "emit.total") if n else 0
     gid = torch.repeat_interleave(
         torch.arange(n, device=dev), tiles, output_size=total
     )
@@ -121,7 +122,9 @@ def emit_pairs(prep, grid_x: int, tile_cull: bool = False,
         cull = (prep.mean2d[gid], prep.conic[gid],
                 cull_tau(prep.opacity)[gid])
         live = ~_slot_cull_mask(rect_min, tx, ty, cull)
-        gid, tile = gid[live], tile[live]
+        # boolean masks: each waits for the card to count the live pairs
+        gid = host_read(lambda: gid[live], "emit.cull_gid")
+        tile = host_read(lambda: tile[live], "emit.cull_tile")
     return gid, tile
 
 

@@ -21,6 +21,8 @@ from typing import NamedTuple
 
 import torch
 
+from eogs2_tpu_torch.observability import host_read
+
 TILE = 16  # BLOCK_X = BLOCK_Y = 16 (cuda_rasterizer/config.h:16-17)
 
 
@@ -53,8 +55,10 @@ def compute_cov2d_direct(scales, quats, affine, width, height,
 
     Same math as build_cov3d + compute_cov2d: cov2d = (J R) diag(s^2) (J R)^T
     with the unnormalized-quaternion rotation, written as [N] columns."""
-    px = torch.tensor([0.5 * width, 0.5 * height], dtype=scales.dtype,
-                      device=scales.device)
+    px = host_read(lambda: torch.tensor([0.5 * width, 0.5 * height],
+                                        dtype=scales.dtype,
+                                        device=scales.device),
+                   "projection.px")
     J = px[:, None] * affine[:2, :3]  # [2,3] constant Jacobian
     r, x, y, z = quats[:, 0], quats[:, 1], quats[:, 2], quats[:, 3]
     R00 = 1.0 - 2.0 * (y * y + z * z)

@@ -38,6 +38,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from eogs2_tpu_torch.observability import host_read, span
+
 _BILINEAR, _ZEROS = 0, 0  # aten's interpolation and padding mode codes
 
 
@@ -77,7 +79,8 @@ def img_grad(g, grid, shape, align_corners: bool = True):
     pos = idx - head
     # the longest run of an input pixel (the dropped run of the taps
     # outside the image, which can hold most columns, is never summed)
-    longest = int(torch.where(tgt_s < h * w, pos, 0).max()) + 1 if n else 0
+    longest = (host_read(torch.where(tgt_s < h * w, pos, 0).max(),
+                         "resample.longest_run") + 1 if n else 0)
     step = 1
     while step < longest:
         nxt = torch.cat([head[step:], head.new_full((step,), -1)])
@@ -94,6 +97,7 @@ def img_grad(g, grid, shape, align_corners: bool = True):
 
 class _GridSample(torch.autograd.Function):
     @staticmethod
+    @span("resample")
     def forward(ctx, img, grid, align_corners):
         ctx.align_corners = align_corners
         ctx.save_for_backward(img, grid)
@@ -102,6 +106,7 @@ class _GridSample(torch.autograd.Function):
                              align_corners=align_corners)[0]
 
     @staticmethod
+    @span("resample.bwd")
     def backward(ctx, g):
         img, grid = ctx.saved_tensors
         g_img = g_grid = None

@@ -19,6 +19,7 @@ from eogs2_tpu_torch.cameras import AffineCamera
 from eogs2_tpu_torch.eval.dsm import compute_dsm_from_view
 from eogs2_tpu_torch.eval.mae import MaeComputer
 from eogs2_tpu_torch.model import GaussianModel
+from eogs2_tpu_torch.observability import host_read, span
 from eogs2_tpu_torch.ops.projection import TILE
 from eogs2_tpu_torch.ops.resample import grid_sample
 from eogs2_tpu_torch.ops.sh import SH2RGB
@@ -32,10 +33,13 @@ def _pad16(x):
 
 
 def _np(x):
-    return None if x is None else x.detach().cpu().numpy()
+    if x is None:
+        return None
+    return host_read(lambda: x.detach().cpu().numpy(), "serve.to_host")
 
 
 @torch.no_grad()
+@span("serve.request", unit=True)
 def render_view_full(
     model: GaussianModel,
     camera: AffineCamera,
@@ -56,9 +60,10 @@ def render_view_full(
     wn, hn = camera.width, camera.height
     wp, hp = _pad16(wn), _pad16(hn)
     if bg is None:
-        bg = np.array([1.0, 0.0, 1.0, float(camera.altitude_bounds[0]), 0.0],
-                      np.float32)
-    bg = torch.tensor(np.asarray(bg, np.float32), device=dev)
+        alt0 = host_read(camera.altitude_bounds[0], "serve.bg_altitude")
+        bg = np.array([1.0, 0.0, 1.0, float(alt0), 0.0], np.float32)
+    bg = host_read(lambda: torch.tensor(np.asarray(bg, np.float32),
+                                        device=dev), "serve.bg")
 
     rgb = SH2RGB(model.features_dc[:, 0, :])
     scaling = torch.exp(model.scaling)
@@ -95,20 +100,21 @@ def render_view_full(
         sun_altitude_diff = altitude - samp
 
     if shading is not None:
-        shaded_out = render_pipeline(
-            raw,
-            sun_altitude_diff,
-            shading.cc_weight[view_idx],
-            shading.cc_bias[view_idx],
-            shading.inshadow[view_idx],
-            use_cc=use_cc,
-            use_shadow=use_shadow,
-            exposure=shading.exposure[view_idx],
-            pan_mode=pan_mode,
-            pan_weight=shading.msi_to_pan_weight[view_idx],
-            pan_bias=shading.msi_to_pan_bias[view_idx],
-            weird_pan_setup=weird_pan_setup,
-        )
+        with span("serve.shading"):
+            shaded_out = render_pipeline(
+                raw,
+                sun_altitude_diff,
+                shading.cc_weight[view_idx],
+                shading.cc_bias[view_idx],
+                shading.inshadow[view_idx],
+                use_cc=use_cc,
+                use_shadow=use_shadow,
+                exposure=shading.exposure[view_idx],
+                pan_mode=pan_mode,
+                pan_weight=shading.msi_to_pan_weight[view_idx],
+                pan_bias=shading.msi_to_pan_bias[view_idx],
+                weird_pan_setup=weird_pan_setup,
+            )
     else:
         shaded_out = {"shadowmap": None, "cc": raw, "shaded": raw, "final": raw}
 
@@ -118,16 +124,17 @@ def render_view_full(
             return None
         return x[:, :hn, :wn] if x.ndim == 3 else x[:hn, :wn]
 
-    return {
-        "raw_render": crop(raw),
-        "altitude": crop(altitude),
-        "acc_opacity": crop(acc),
-        "cc": crop(shaded_out["cc"]),
-        "shaded": crop(shaded_out["shaded"]),
-        "final": crop(shaded_out["final"]),
-        "shadowmap": crop(shaded_out["shadowmap"]),
-        "rendered_uva": _np(rendered_uva)[:hn, :wn],
-    }
+    with span("serve.to_host"):
+        return {
+            "raw_render": crop(raw),
+            "altitude": crop(altitude),
+            "acc_opacity": crop(acc),
+            "cc": crop(shaded_out["cc"]),
+            "shaded": crop(shaded_out["shaded"]),
+            "final": crop(shaded_out["final"]),
+            "shadowmap": crop(shaded_out["shadowmap"]),
+            "rendered_uva": _np(rendered_uva)[:hn, :wn],
+        }
 
 
 def nadir_dsm(

@@ -19,6 +19,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from eogs2_tpu_torch.observability import host_read, span
 from eogs2_tpu_torch.ops.binning import grid_dims
 from eogs2_tpu_torch.ops.blend import blend_tiles
 from eogs2_tpu_torch.ops.blend_cuda import BlendTilesPallas
@@ -131,16 +132,18 @@ def rasterize(
     Runs on the device of its tensors."""
     if config.binning_mode not in ("fused", "gather", "sorted"):
         raise ValueError(f"unknown binning_mode {config.binning_mode!r}")
-    cov2d = compute_cov2d_direct(scales, quats, affine, width, height)
-    prep = preprocess_gaussians(
-        means3d, None, opacities, affine, width, height,
-        antialiasing=config.antialiasing, alive=alive, cov2d=cov2d,
-    )
-    if mean2d_ndc_offset is not None:
-        px_scale = torch.tensor([0.5 * width, 0.5 * height],
-                                dtype=prep.mean2d.dtype,
-                                device=prep.mean2d.device)
-        prep = prep._replace(mean2d=prep.mean2d + mean2d_ndc_offset * px_scale)
+    with span("raster.preprocess"):
+        cov2d = compute_cov2d_direct(scales, quats, affine, width, height)
+        prep = preprocess_gaussians(
+            means3d, None, opacities, affine, width, height,
+            antialiasing=config.antialiasing, alive=alive, cov2d=cov2d,
+        )
+        if mean2d_ndc_offset is not None:
+            px_scale = host_read(lambda: torch.tensor(
+                [0.5 * width, 0.5 * height], dtype=prep.mean2d.dtype,
+                device=prep.mean2d.device), "raster.px_scale")
+            prep = prep._replace(
+                mean2d=prep.mean2d + mean2d_ndc_offset * px_scale)
 
     grid_x, grid_y = grid_dims(width, height)
     if config.binning_mode == "fused":
@@ -159,20 +162,22 @@ def rasterize(
             bulk_rect_max_seen=fo.bulk_rect_max_tiles,
         )
 
-    pd = densify_pairs(prep, features, width, height,
-                       tcap=config.max_tiles_per_gaussian,
-                       tile_capacity=config.tile_capacity)
-    if config.use_pallas:
-        out, final_t = BlendTilesPallas.apply(pd.data, bg, grid_x)
-    else:
-        d = pd.data.transpose(1, 2)  # [T, K, 16]
-        ids = torch.arange(grid_x * grid_y, device=prep.mean2d.device)
-        origins = torch.stack([ids % grid_x, ids // grid_x], -1).to(
-            prep.mean2d.dtype) * TILE
-        out, final_t = blend_tiles(d[..., 0:2], d[..., 2:5], d[..., 5],
-                                   d[..., 6:11], pd.mask, origins, bg,
-                                   tile_chunk=config.tile_chunk,
-                                   use_custom_vjp=config.use_custom_vjp)
+    with span("raster.emission"):
+        pd = densify_pairs(prep, features, width, height,
+                           tcap=config.max_tiles_per_gaussian,
+                           tile_capacity=config.tile_capacity)
+    with span("raster.blend"):
+        if config.use_pallas:
+            out, final_t = BlendTilesPallas.apply(pd.data, bg, grid_x)
+        else:
+            d = pd.data.transpose(1, 2)  # [T, K, 16]
+            ids = torch.arange(grid_x * grid_y, device=prep.mean2d.device)
+            origins = torch.stack([ids % grid_x, ids // grid_x], -1).to(
+                prep.mean2d.dtype) * TILE
+            out, final_t = blend_tiles(d[..., 0:2], d[..., 2:5], d[..., 5],
+                                       d[..., 6:11], pd.mask, origins, bg,
+                                       tile_chunk=config.tile_chunk,
+                                       use_custom_vjp=config.use_custom_vjp)
     return _assemble(prep, out, final_t, pd.num_pairs, pd.max_tile_count,
                      features.shape[-1], width, height, grid_x, grid_y)
 
@@ -186,8 +191,9 @@ def _assemble(prep, out, final_t, num_pairs, max_tile_count, c,
     ft = final_t.reshape(grid_y, grid_x, TILE, TILE)
     ft = ft.permute(0, 2, 1, 3).reshape(grid_y * TILE, grid_x * TILE)
     ft = ft[:height, :width]
-    scale_ndc = torch.tensor([2.0 / width, 2.0 / height],
-                             dtype=prep.mean2d.dtype, device=prep.mean2d.device)
+    scale_ndc = host_read(lambda: torch.tensor(
+        [2.0 / width, 2.0 / height], dtype=prep.mean2d.dtype,
+        device=prep.mean2d.device), "raster.scale_ndc")
     return RasterOut(
         image=img.permute(2, 0, 1),
         final_t=ft,

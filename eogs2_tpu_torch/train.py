@@ -95,6 +95,7 @@ from eogs2_tpu_torch.flow import (adjust_affine, apply_flow_to_image,
                                   estimate_flow, flow_accept,
                                   phase_correlation_shift)
 from eogs2_tpu_torch.io.ply import save_gaussians_ply
+from eogs2_tpu_torch.observability import host_read, span
 from eogs2_tpu_torch.model import (GaussianModel, GaussianParams,
                                    add_densification_stats, init_from_points)
 from eogs2_tpu_torch.ops.projection import TILE
@@ -385,7 +386,8 @@ def make_train_step(
             if o.copy_background_firschan:
                 bg[1:3] = bg[0]
             bg[3] = cam.altitude_bounds[0]
-            bg[4] = 0.0
+            # a Python scalar written into a device tensor waits for the card
+            host_read(lambda: bg.__setitem__(4, 0.0), "train.bg_zero")
 
             # ---- main render (at the padded canvas) ----
             xyz = model.xyz
@@ -630,11 +632,13 @@ def make_train_step(
                               device=model.xyz.device, requires_grad=True)
         batched = isinstance(view_idx, (list, tuple))
         lead = (len(view_idx),) if batched else ()
-        total, metrics, radii = loss_fn(
-            gv, shading, m2d_off, view_idx,
-            bg_draw.reshape(lead + (n_mod, 5)),
-            shear_draw.reshape(lead + (n_mod, 2)), gates)
-        total.backward()
+        with span("train.forward"):
+            total, metrics, radii = loss_fn(
+                gv, shading, m2d_off, view_idx,
+                bg_draw.reshape(lead + (n_mod, 5)),
+                shear_draw.reshape(lead + (n_mod, 2)), gates)
+        with span("train.backward"):
+            total.backward()
         if n_d > 1:  # the views' gradients summed over "d"
             for opt in (gauss_opt, cam_opt):
                 for group in opt.param_groups:
@@ -669,8 +673,9 @@ def make_train_step(
             vis = radii > 0
             before = [p.detach().clone() for g in gauss_opt.param_groups
                       for p in g["params"]]
-        gauss_opt.step()
-        cam_opt.step()
+        with span("train.optimizer"):
+            gauss_opt.step()
+            cam_opt.step()
         if o.optimizer_type == "sparse_adam":
             with torch.no_grad():
                 ps = [p for g in gauss_opt.param_groups for p in g["params"]]
@@ -1043,6 +1048,7 @@ class Trainer:
                 raster_backend=self.raster_backend, mesh=self.mesh)
         return self._steps[phase]
 
+    @span("train.maintenance")
     def _maintenance(self, iteration: int):
         """Pruning / densification / opacity reset (train_pan.py:672-736),
         in JAX's order (eogs2_tpu/train.py:1184-1232)."""
@@ -1084,10 +1090,10 @@ class Trainer:
             apply_prune(model, prune_mask(model, 0.005, size_thr, extent,
                                           extent))
             reset_densification_stats(model)
-            counts = torch.stack([
+            counts = host_read(torch.stack([
                 ((grads_avg >= d.densify_grad_threshold) & alive0).sum(),
                 alive0.sum(), n_clone, n_split, grown,
-                model.alive.sum()]).tolist()  # one host sync
+                model.alive.sum()]), "densify.counts")
         self.densify_log.append(dict(zip(
             ("iteration", "selected", "alive_before", "cloned", "split",
              "alive_densified", "alive_pruned"), [iteration] + counts)))
@@ -1158,29 +1164,30 @@ class Trainer:
         this iteration's phase with its gates and draws, then the
         maintenance (prune, densify, opacity reset). Returns the step's
         metrics as device tensors (nothing synced by the step)."""
-        n_views = len(self.modal_views[0][1])
-        vps = min(getattr(self.cfg.optimization, "views_per_step", 1),
-                  n_views)
-        picked = []
-        while len(picked) < max(vps, 1):
-            if not self._view_stack:
-                self._view_stack = list(self.rng.permutation(n_views))
-            picked.append(int(self._view_stack.pop()))
-        view_idx = picked if vps > 1 else picked[0]
-        step = self._get_step(phase_for_iteration(self.cfg, iteration))
-        gates = make_gates(self.cfg, iteration, self.init_count)
-        # the step's random inputs, one row per modality (and per view with
-        # views_per_step > 1): the background's uniform [5], the random
-        # camera's standard-normal shear [2]
-        g, dev, m = self.generator, self.device, len(self.modal_views)
-        lead = (vps,) if vps > 1 else ()
-        bg_draw = torch.rand(lead + (m, 5), generator=g, device=dev)
-        shear_draw = torch.randn(lead + (m, 2), generator=g, device=dev)
-        metrics = step(self.model, self.shading, view_idx, bg_draw,
-                       shear_draw, gates)
-        self.step += 1
-        self._maintenance(iteration)
-        return metrics
+        with span("train.step", unit=iteration):
+            n_views = len(self.modal_views[0][1])
+            vps = min(getattr(self.cfg.optimization, "views_per_step", 1),
+                      n_views)
+            picked = []
+            while len(picked) < max(vps, 1):
+                if not self._view_stack:
+                    self._view_stack = list(self.rng.permutation(n_views))
+                picked.append(int(self._view_stack.pop()))
+            view_idx = picked if vps > 1 else picked[0]
+            step = self._get_step(phase_for_iteration(self.cfg, iteration))
+            gates = make_gates(self.cfg, iteration, self.init_count)
+            # the step's random inputs, one row per modality (and per view
+            # with views_per_step > 1): the background's uniform [5], the
+            # random camera's standard-normal shear [2]
+            g, dev, m = self.generator, self.device, len(self.modal_views)
+            lead = (vps,) if vps > 1 else ()
+            bg_draw = torch.rand(lead + (m, 5), generator=g, device=dev)
+            shear_draw = torch.randn(lead + (m, 2), generator=g, device=dev)
+            metrics = step(self.model, self.shading, view_idx, bg_draw,
+                           shear_draw, gates)
+            self.step += 1
+            self._maintenance(iteration)
+            return metrics
 
     def train(self, max_iterations: Optional[int] = None,
               progress: bool = True) -> GaussianModel:

@@ -269,6 +269,7 @@ def tiny_scene(tmp_path_factory):
      ValueError, "number of processes"),
     (["train", "--steps-per-dispatch", "4"], NotImplementedError,
      "Deliberate differences"),
+    (["train", "--trace-steps", "3"], ValueError, "A:B"),
 ])
 def test_unported_options_raise(tiny_scene, tmp_path, argv, exc, match):
     """The options that cannot run as given raise before any work: the
@@ -306,9 +307,11 @@ def test_cli_needs_a_card_without_device(tmp_path, monkeypatch):
     assert not os.path.exists(tmp_path / "s")
 
 
-def test_observability_matches_jax(tmp_path, card_machine):
+def test_observability_matches_jax(tmp_path, tiny_scene, card_machine):
     """MetricsLogger writes JAX's JSONL rows and config snapshot (and, with
-    no TensorBoard, PNGs); StepTimer, ProfilerContext and nan_guard."""
+    no TensorBoard, PNGs); ProfilerContext, train --trace-steps (the
+    profiler's trace and the program's spans of the iterations asked for)
+    and nan_guard."""
     from eogs2_tpu import observability as jobs
     from eogs2_tpu_torch import observability as tobs
     from eogs2_tpu_torch.config import baseogs
@@ -335,14 +338,22 @@ def test_observability_matches_jax(tmp_path, card_machine):
     np.testing.assert_array_equal(
         png, (np.clip(img, 0, 1).transpose(1, 2, 0) * 255).astype(np.uint8))
 
-    timer = tobs.StepTimer()
-    for _ in range(2):
-        with timer.track("step"):
-            pass
-    assert set(timer.summary()) == {"step"}
     with tobs.ProfilerContext(str(tmp_path / "prof")) as prof:
         torch.ones(4).sum()
     assert (tmp_path / "prof" / "trace.json").exists() and prof.profile
+    run = tmp_path / "traced"
+    assert cli.main(["train", *CPU, "--scene-dir", tiny_scene, "--model-path",
+                     str(run), "--iterations", "4", "--trace-steps",
+                     "2:3"]) == 0
+    with open(run / "spans.json") as f:
+        spans = json.load(f)
+    steps = [s for s in spans["spans"] if s["name"] == "train.step"]
+    assert [s["unit_id"] for s in steps] == [2, 3]
+    assert spans["summary"]["units"] == {"train.step": 2}
+    with open(run / "trace.json") as f:
+        names = {e.get("name") for e in json.load(f)["traceEvents"]}
+    assert {"train.step", "train.backward", "raster.emission"} <= names
+    assert not tobs.tracer.recording()
 
     def two(x):
         return {"a": x.abs().clamp_max(1.0), "b": (x.sum(), 1)}

@@ -26,11 +26,16 @@ the dense routes were added, so that their times stay comparable):
   3. the serving path at full width: 1,000,000 seeded Gaussians on a
      synthetic heightfield, a 1024x1024 view with its sun model (the sun
      render is 2048x2048) through render_view_full with sun and shading,
-     then nadir_dsm; K1's launch counts over that run, its median time of 3
+     then nadir_dsm; K1's and the emission passes' launch counts over that
+     run (one count and one write pass a render), its median time of 3
      runs after one warm-up, peak memory, the outputs checked; one profiled
      run of each entry point (device time by kernel, device busy share);
      K1 against its plain version at each of the three renders' exact
-     inputs, with its time, the plain version's and its bound;
+     inputs, with its time, the plain version's and its bound; the
+     emission's two passes (csrc/emit_pairs.cu) against the plain emission
+     at the view's and the sun's inputs with tile_cull and at the view's
+     without it at tcap 16: gid, tile, sort key and counts bit-equal, with
+     both times and the bound;
   4. K2 (csrc/fused_blend_bwd.cu) against fused_blend_bwd_plain on the same
      three scenes with a seeded random cotangent, per payload row max-abs
      error over the row's max-abs value <= 2e-4 (tests/test_golden.py's
@@ -45,7 +50,8 @@ the dense routes were added, so that their times stay comparable):
      camera on from iteration 1 (every step renders main 1024^2, sun 2048^2
      and random 1024^2, each forward and backward) on the fused route with
      tile_cull; 2 warm-up steps, then 10 timed steps, each ending in
-     torch.cuda.synchronize(); K1 and K2 launches over the timed steps,
+     torch.cuda.synchronize(); K1, K2 and the emission passes' launches
+     over the timed steps,
      peak memory, every metric finite, parameters moved, alive before and
      after; one profiled step; K1 and K2 at each of the three renders'
      exact inputs of a step (captured from the step; K1's out8 equal to the
@@ -685,6 +691,7 @@ def phase_serve(device, n=1_000_000, width=1024):
 
     from eogs2_tpu_torch.ops.fused_raster import (fused_blend_fwd,
                                                   fused_blend_fwd_plain)
+    from eogs2_tpu_torch.ops.pair_pipeline import count_pairs, write_pairs
     from eogs2_tpu_torch.pipeline import nadir_dsm, render_view_full
     from eogs2_tpu_torch.rasterizer import RasterizeConfig
 
@@ -704,17 +711,25 @@ def phase_serve(device, n=1_000_000, width=1024):
     # entry point and read just after
     torch.cuda.reset_peak_memory_stats()
     fused_blend_fwd.launches = 0
+    count_pairs.launches = write_pairs.launches = 0
     out = rvf()
     torch.cuda.synchronize()
     launches_rvf = fused_blend_fwd.launches
+    emit_rvf = (count_pairs.launches, write_pairs.launches)
     fused_blend_fwd.launches = 0
+    count_pairs.launches = write_pairs.launches = 0
     profile, dsm, nout = nadir()
     torch.cuda.synchronize()
     launches_nadir = fused_blend_fwd.launches
+    emit_nadir = (count_pairs.launches, write_pairs.launches)
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
     if launches_rvf != 2 or launches_nadir != 1:
         raise AssertionError(f"K1 launches: render_view_full {launches_rvf} "
                              f"(want 2), nadir_dsm {launches_nadir} (want 1)")
+    if emit_rvf != (2, 2) or emit_nadir != (1, 1):
+        raise AssertionError(f"emission (count, write) launches: "
+                             f"render_view_full {emit_rvf} (want (2, 2)), "
+                             f"nadir_dsm {emit_nadir} (want (1, 1))")
 
     rvf_ms, rvf_all = median_ms(rvf)
     nadir_ms, nadir_all = median_ms(nadir)
@@ -729,6 +744,8 @@ def phase_serve(device, n=1_000_000, width=1024):
              nadir_dsm_ms=nadir_ms, nadir_dsm_runs_ms=nadir_all,
              peak_mem_gib=peak_gib, k1_launches_render_view_full=launches_rvf,
              k1_launches_nadir_dsm=launches_nadir,
+             emit_launches_render_view_full=emit_rvf,
+             emit_launches_nadir_dsm=emit_nadir,
              **check_serve_outputs(out, nout, dsm, scene, width), **CARD))
 
     # ---- K1 at the three renders' exact inputs --------------------------
@@ -746,7 +763,100 @@ def phase_serve(device, n=1_000_000, width=1024):
         log(dict(phase="k1_at_serve_shape", render=name, width=w, height=w,
                  **rep, **CARD))
         del sp, k
-    return per_render, launches_rvf + launches_nadir
+    emission = phase_emission_at_serve_shape(model, view, scene, width)
+    return (per_render, launches_rvf + launches_nadir,
+            sum(emit_rvf) + sum(emit_nadir), emission)
+
+
+EMIT_OPS_PER_TILE = 110  # the cull test's FP32 operations
+# rect_min, rect_size, tiles, depth read, the count written
+EMIT_BYTES_PER_GAUSSIAN = 8 + 8 + 4 + 4 + 8
+EMIT_CULL_BYTES_PER_GAUSSIAN = 8 + 12 + 4  # mean2d, conic, thr read
+EMIT_BYTES_PER_PAIR = 24  # gid, tile, key written
+
+
+def emission_bound(walk, pairs):
+    """Least time the card needs for the emission, whatever its design:
+    each per-Gaussian input it reads once (mean2d, conic and the threshold
+    only with a cull), each Gaussian's count and the pairs written, against
+    one cull test at every walked tile."""
+    n = walk.tiles.shape[0]
+    walked = int(walk.tiles.long().sum())
+    cull = walk.thr is not None
+    bytes_ = ((EMIT_BYTES_PER_GAUSSIAN
+               + (EMIT_CULL_BYTES_PER_GAUSSIAN if cull else 0)) * n
+              + EMIT_BYTES_PER_PAIR * pairs)
+    ops = EMIT_OPS_PER_TILE * walked if cull else 0
+    t_bytes = bytes_ / H100_BYTES_PER_S * 1e3
+    t_ops = ops / H100_FP32_FLOPS * 1e3
+    return dict(bound_ms=max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes >= t_ops else "operations",
+                bytes=bytes_, ops=ops, walked_tiles=walked)
+
+
+def phase_emission_at_serve_shape(model, view, scene, width):
+    """The emission's two passes (csrc/emit_pairs.cu) against the plain
+    emission on the same walk, at the serving renders' exact inputs (the
+    1024^2 view and its 2048^2 sun with tile_cull, as the benchmark's cells
+    render; the view without it and at tcap 16, the dense modes'): gid,
+    tile, sort key and counts bit-equal. Times of both (the whole emission:
+    passes, prefix sum, the read of the total) and the bound."""
+    import torch
+
+    from eogs2_tpu_torch.ops.binning import grid_dims
+    from eogs2_tpu_torch.ops.pair_pipeline import (count_pairs, emit_pairs,
+                                                   emit_walk_plain, walk_of,
+                                                   write_pairs)
+    from eogs2_tpu_torch.ops.projection import (compute_cov2d_direct,
+                                                preprocess_gaussians)
+    from eogs2_tpu_torch.renderer import gaussian_features
+
+    renders = serve_renders(view, scene, width)
+    cases = [("view", True, None), ("sun", True, None), ("view", False, 16)]
+    reps = {}
+    for name, cull, tcap in cases:
+        cam, w = renders[name]
+        with torch.no_grad():
+            affine = cam.resize_canvas(w, w).affine
+            cov2d = compute_cov2d_direct(model.get_scaling(), model.rotation,
+                                         affine, w, w)
+            prep = preprocess_gaussians(model.xyz, None, model.get_opacity(),
+                                        affine, w, w, cov2d=cov2d)
+            depth = -gaussian_features(model, cam)[:, 3]
+        gx, _ = grid_dims(w, w)
+        walk = walk_of(prep, cull, tcap)
+        launches = (count_pairs.launches, write_pairs.launches)
+        em = emit_pairs(prep, gx, tile_cull=cull, tcap=tcap, depth=depth)
+        if (count_pairs.launches - launches[0],
+                write_pairs.launches - launches[1]) != (1, 1):
+            raise AssertionError("emit_pairs did not launch one count and "
+                                 "one write pass")
+        ref = emit_walk_plain(walk, gx, depth)
+        torch.cuda.synchronize()
+        equal = {f: bool(torch.equal(a, b))
+                 for f, a, b in zip(em._fields, em, ref)}
+        rep = dict(gaussians=int(prep.depth.shape[0]),
+                   pre_cull_pairs=int(walk.tiles.long().sum()),
+                   pairs=int(em.gid.shape[0]),
+                   widest=int(walk.tiles.max()),
+                   over_32_tiles=int((walk.tiles > 32).sum()),
+                   bit_equal=equal)
+        if not all(equal.values()):
+            raise AssertionError(f"the emission kernel disagrees with the "
+                                 f"plain emission: {rep}")
+        del em, ref
+        rep["ms"] = time_cuda(lambda: emit_pairs(prep, gx, tile_cull=cull,
+                                                 tcap=tcap, depth=depth), 20)
+        rep["count_ms"] = time_cuda(lambda: count_pairs(walk, gx), 20)
+        rep["plain_ms"] = time_cuda(
+            lambda: emit_walk_plain(walk_of(prep, cull, tcap), gx, depth), 3)
+        rep.update(emission_bound(walk, rep["pairs"]))
+        key = f"{name}{'' if cull else '_nocull_tcap16'}"
+        reps[key] = rep
+        log(dict(phase="emission_at_serve_shape", render=name, width=w,
+                 height=w, tile_cull=cull, tcap=tcap, **rep, **CARD))
+        del prep, walk, depth
+    return reps
 
 
 def small_scenes(n, w):
@@ -897,6 +1007,7 @@ def phase_train(device, scene, scene_s, width=1024, warmup=2, timed=10):
                                                   fused_blend_fwd,
                                                   fused_blend_fwd_plain)
     from eogs2_tpu_torch.ops.knn import mean_knn_dist2
+    from eogs2_tpu_torch.ops.pair_pipeline import count_pairs, write_pairs
     from eogs2_tpu_torch.rasterizer import RasterizeConfig
     from eogs2_tpu_torch.train import Trainer, mean_metrics
 
@@ -921,6 +1032,7 @@ def phase_train(device, scene, scene_s, width=1024, warmup=2, timed=10):
     torch.cuda.reset_peak_memory_stats()
     fused_blend_fwd.launches = 0
     fused_blend_bwd.launches = 0
+    count_pairs.launches = write_pairs.launches = 0
     steps, step_ms = [], []
     for it in range(warmup + 1, warmup + timed + 1):
         t = time.perf_counter()
@@ -928,10 +1040,15 @@ def phase_train(device, scene, scene_s, width=1024, warmup=2, timed=10):
         torch.cuda.synchronize()
         step_ms.append((time.perf_counter() - t) * 1e3)
     k1_launches, k2_launches = fused_blend_fwd.launches, fused_blend_bwd.launches
+    emit_launches = (count_pairs.launches, write_pairs.launches)
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
     if k1_launches != 3 * timed or k2_launches != 3 * timed:
         raise AssertionError(f"launches over {timed} steps: K1 {k1_launches}, "
                              f"K2 {k2_launches} (want {3 * timed} each)")
+    if emit_launches != (3 * timed, 3 * timed):
+        raise AssertionError(f"emission (count, write) launches over {timed} "
+                             f"steps: {emit_launches} (want {3 * timed} "
+                             f"each)")
     metrics = mean_metrics(steps)
     every = torch.stack([torch.stack([m[k].double() for k in m])
                          for m in steps])
@@ -948,7 +1065,9 @@ def phase_train(device, scene, scene_s, width=1024, warmup=2, timed=10):
              config="fused, tile_cull, eogs_features",
              ms_per_step=statistics.median(step_ms), step_ms=step_ms,
              k1_launches_per_step=k1_launches / timed,
-             k2_launches_per_step=k2_launches / timed, peak_mem_gib=peak_gib,
+             k2_launches_per_step=k2_launches / timed,
+             emit_launches_per_step=sum(emit_launches) / timed,
+             peak_mem_gib=peak_gib,
              scene_host_s=scene_s, knn_s=knn_s, setup_s=setup_s,
              alive_before=alive0, alive_after=alive1, max_param_change=moved,
              metrics=metrics, **CARD))
@@ -995,7 +1114,8 @@ def phase_train(device, scene, scene_s, width=1024, warmup=2, timed=10):
              **{f"{k}_{key}": sum(r[key] for r in at.values())
                 for k, at in (("k1", k1_at), ("k2", k2_at))
                 for key in ("ms", "bound_ms", "plain_ms")}, **CARD))
-    return k2_at, k1_at, k1_launches, k2_launches, calls[0], tr
+    return (k2_at, k1_at, k1_launches, k2_launches, sum(emit_launches),
+            calls[0], tr)
 
 
 def leaf_grads(tr):
@@ -4288,10 +4408,10 @@ def main(argv=None) -> int:
     phase_build()
     phase_k1_small(device)
     k2_small_err = phase_k2_small(device)
-    per_render, serve_launches = phase_serve(device)
+    per_render, serve_launches, serve_emit, emission = phase_serve(device)
     scene, scene_s, arrays = train_scene(device)
-    k2_at, k1_at, k1_launches, k2_launches, captured, tr = phase_train(
-        device, scene, scene_s)
+    (k2_at, k1_at, k1_launches, k2_launches, train_emit, captured,
+     tr) = phase_train(device, scene, scene_s)
     k2 = k2_at["main"]
     k3, k3_fwd, k3_bwd, k3_launches = phase_k3_at_train_shape(
         device, captured, tr, k1_at["main"], k2)
@@ -4349,7 +4469,20 @@ def main(argv=None) -> int:
                     train_step_bound_ms={k: r["bound_ms"]
                                          for k, r in at.items()})
 
+    emit = emission["view"]
     log({"kernels": [
+        dict(name="emit_pairs (count and write passes)", route="cuda",
+             source="eogs2_tpu_torch/csrc/emit_pairs.cu",
+             replaces=None,  # XLA ops in JAX (pair_pipeline._tier_keys*)
+             launches=serve_emit + train_emit,
+             bit_equal=all(all(r["bit_equal"].values())
+                           for r in emission.values()),
+             ms=emit["ms"], plain_ms=emit["plain_ms"],
+             bound_ms=emit["bound_ms"], bound_by=emit["bound_by"],
+             library_ms=None,
+             at_serve_shape={k: dict(ms=r["ms"], plain_ms=r["plain_ms"],
+                                     bound_ms=r["bound_ms"])
+                             for k, r in emission.items()}),
         kernel_entry("fused_blend_fwd (K1)", "fused_blend_fwd.cu",
               "fused_raster.py:532", serve_launches + k1_launches
               + recipe_k1 + cli_k1 + eplus_k1 + full_k1

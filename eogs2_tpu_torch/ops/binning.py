@@ -19,7 +19,6 @@ from typing import NamedTuple
 
 import torch
 
-from eogs2_tpu_torch.observability import host_read
 from eogs2_tpu_torch.ops.projection import TILE
 
 
@@ -49,20 +48,18 @@ def depth_key(depth):
     return torch.where(bits < 0, ~bits & 0xFFFFFFFF, bits | 0x80000000)
 
 
-def sort_emission(gid, tile, depth, n_tiles: int):
-    """Stable sort of an emission by (tile, depth[gid]).
+def sort_emission(em, n_tiles: int):
+    """Stable sort of an emission (ops/pair_pipeline.Emission, its key
+    built) by (tile, depth[gid]).
 
-    Returns (sorted gid, perm, per-Gaussian lengths, tstart, cnt): perm is
-    the sort's permutation, tstart/cnt [n_tiles] int32 each tile's range."""
-    key = (tile << 32) | depth_key(depth)[gid]
-    skey, perm = torch.sort(key, stable=True)
-    lengths = host_read(lambda: torch.bincount(gid, minlength=depth.shape[0]),
-                        "sort.lengths", syncs=2)
+    Returns (sorted gid, perm, tstart, cnt): perm is the sort's permutation,
+    tstart/cnt [n_tiles] int32 each tile's range."""
+    skey, perm = torch.sort(em.key, stable=True)
     bounds = torch.searchsorted(
         skey >> 32, torch.arange(n_tiles + 1, device=skey.device))
     tstart = bounds[:-1].to(torch.int32)
     cnt = (bounds[1:] - bounds[:-1]).to(torch.int32)
-    return gid[perm], perm, lengths, tstart, cnt
+    return em.gid[perm], perm, tstart, cnt
 
 
 def bin_gaussians(prep, width: int, height: int, pair_capacity: int = 0,
@@ -75,20 +72,19 @@ def bin_gaussians(prep, width: int, height: int, pair_capacity: int = 0,
     from eogs2_tpu_torch.ops.pair_pipeline import emit_pairs
 
     grid_x, grid_y = grid_dims(width, height)
-    depth = prep.depth.detach()
-    gid, tile = emit_pairs(prep, grid_x, tcap=max_tiles_per_gaussian)
-    sgid, perm, lengths, tstart, cnt = sort_emission(gid, tile, depth,
-                                                     grid_x * grid_y)
+    em = emit_pairs(prep, grid_x, tcap=max_tiles_per_gaussian,
+                    depth=prep.depth.detach())
+    sgid, perm, tstart, cnt = sort_emission(em, grid_x * grid_y)
     tiles = prep.tiles_touched.to(torch.int64)
     return Binning(
         pair_gauss=sgid,
-        pair_tile=tile[perm],
+        pair_tile=em.tile[perm],
         tile_start=tstart,
         tile_count=cnt,
         num_pairs=tiles.sum(),
         max_tile_count=cnt.max(),
         perm=perm,
-        lengths=lengths,
+        lengths=em.lengths,
     )
 
 

@@ -8,7 +8,8 @@ payload, K3 (the same source, row load) on the row payload.
 
 Differences from the JAX package, all deliberate:
 
-  * Emission is sized by true demand (ops/pair_pipeline.emit_pairs), so
+  * Emission is sized by true demand (ops/pair_pipeline.emit_pairs; on
+    the card the count and write passes of ``csrc/emit_pairs.cu``), so
     the static tcap / big_k / big_tcap / rect_cap / big_rect_cap tiers of
     ``_emission_tabs`` do not exist and never clip.
   * The blend walks EVERY pair of a tile, as the CUDA reference does: the
@@ -48,7 +49,7 @@ same with a return sort and ``emission_reduce``. Autograd of a plain
 from __future__ import annotations
 
 import ctypes
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -83,6 +84,7 @@ class SortedPairs(NamedTuple):
     tstart: torch.Tensor  # [T] i32 first sorted pair of each tile
     cnt: torch.Tensor  # [T] i32 pairs per tile
     gid: torch.Tensor  # [P] i64 Gaussian of each sorted pair
+    lengths: Optional[torch.Tensor] = None  # [N] i64 pairs of each Gaussian
 
 
 class _GatherPairs(torch.autograd.Function):
@@ -122,9 +124,9 @@ def sort_pairs(prep: Preprocessed, features, width: int, height: int,
     keys = Preprocessed(*(x.detach() for x in prep))
     depth = -features[:, 3].detach() if eogs else keys.depth
     with span("raster.emission"):
-        gid, tile = emit_pairs(keys, grid_x, tile_cull=tile_cull)
-        gid, perm, lengths, tstart, cnt = sort_emission(
-            gid, tile, depth, grid_x * grid_y)
+        em = emit_pairs(keys, grid_x, tile_cull=tile_cull, depth=depth)
+        gid, perm, tstart, cnt = sort_emission(em, grid_x * grid_y)
+        lengths = em.lengths
     cols = [prep.mean2d[:, 0], prep.mean2d[:, 1], prep.conic[:, 0],
             prep.conic[:, 1], prep.conic[:, 2], prep.opacity]
     if eogs:
@@ -137,7 +139,7 @@ def sort_pairs(prep: Preprocessed, features, width: int, height: int,
         pay = _GatherPairs.apply(x, gid, perm, lengths, 0)
     else:
         pay = _GatherPairs.apply(torch.stack(cols, 0), gid, perm, lengths, 1)
-    return SortedPairs(pay.contiguous(), tstart, cnt, gid)
+    return SortedPairs(pay.contiguous(), tstart, cnt, gid, lengths)
 
 
 def _tile_chunks(cnt, chunk_elems: int):
@@ -483,12 +485,9 @@ def rasterize_fused(prep: Preprocessed, features, width: int, height: int,
     if tile_cull:
         # demand under culling is the live pair count (dead tiles are not
         # demand), per Gaussian its live tiles
-        num_pairs = host_read(lambda: torch.tensor(sp.gid.shape[0],
-                                                   device=dev),
-                              "raster.num_pairs")
-        active = host_read(lambda: torch.bincount(
-            sp.gid, minlength=tiles.shape[0]), "raster.active", syncs=2)
-        bulk_max = active.max() if active.numel() else zero
+        num_pairs = torch.full((), sp.gid.shape[0], dtype=torch.int64,
+                               device=dev)
+        bulk_max = sp.lengths.max() if sp.lengths.numel() else zero
     else:
         num_pairs = tiles.sum()
         bulk_max = rect_max

@@ -13,7 +13,14 @@ nothing to do. The dense modes clamp each Gaussian to its first
 
 Emission order is Gaussian-major (each Gaussian's rect tiles row-major,
 culled ones removed in place — the same within-Gaussian order as the
-compacting tier).
+compacting tier). On the card the emission is the two passes of
+``csrc/emit_pairs.cu`` (the reference's duplicateWithKeys after its
+tiles_touched scan): a count of each Gaussian's live tiles, one prefix sum
+and one read of the total, and a write of the pairs at each Gaussian's
+offset, so no pre-cull pair exists. The plain version (``emit_walk_plain``,
+the CPU's path) expands every walked tile and drops the dead ones; the two
+agree bit for bit. Both return each Gaussian's pair count (``lengths``),
+which the sort, the deterministic backward and the statistics take.
 
 ``densify_pairs`` is the counterpart of ``eogs2_tpu/ops/pair_pipeline.py:
 densify_pairs`` (the ``sorted`` mode): the dense view of the sorted pairs,
@@ -27,12 +34,14 @@ in what they compute.
 
 from __future__ import annotations
 
+import ctypes
 from typing import NamedTuple, Optional
 
 import torch
 
 from eogs2_tpu_torch.observability import host_read
-from eogs2_tpu_torch.ops.binning import bin_gaussians, tile_pair_indices
+from eogs2_tpu_torch.ops.binning import (bin_gaussians, depth_key,
+                                         tile_pair_indices)
 from eogs2_tpu_torch.ops.projection import TILE
 
 # conservative slack on the cull threshold, covering f32 rounding drift
@@ -74,8 +83,8 @@ def _slot_cull_mask(rect_min, tx, ty, cull):
     dropping the pair is output-exact.
 
     rect_min [P,2], tx/ty [P] rect offsets, cull = (mean2d [P,2],
-    conic [P,3], tau [P]) — all per pair."""
-    mean2d, conic, tau = cull
+    conic [P,3], thr [P]) — all per pair; thr = cull_tau + _CULL_MARGIN."""
+    mean2d, conic, thr = cull
     x0 = (rect_min[:, 0] + tx).to(torch.float32) * TILE
     y0 = (rect_min[:, 1] + ty).to(torch.float32) * TILE
     mx, my = mean2d[:, 0], mean2d[:, 1]
@@ -84,7 +93,7 @@ def _slot_cull_mask(rect_min, tx, ty, cull):
         mx - (x0 + TILE - 1.0), mx - x0,
         my - (y0 + TILE - 1.0), my - y0,
     )
-    dead = qmin > tau + _CULL_MARGIN
+    dead = qmin > thr
     return torch.where(torch.isfinite(qmin), dead, False)
 
 
@@ -94,18 +103,47 @@ def cull_tau(opacity):
     return 2.0 * torch.log(torch.clamp_min(opacity, 1e-30) * 255.0)
 
 
-def emit_pairs(prep, grid_x: int, tile_cull: bool = False,
-               tcap: Optional[int] = None):
-    """Demand-sized emission.
+class Emission(NamedTuple):
+    gid: torch.Tensor  # [P] int64 Gaussian of each pair, Gaussian-major
+    tile: torch.Tensor  # [P] int64 tile of each pair
+    lengths: torch.Tensor  # [N] int64 pairs each Gaussian emitted
+    key: Optional[torch.Tensor]  # [P] int64 tile << 32 | depth_key, or None
 
-    Returns (gid [P] int64 Gaussian index, tile [P] int64 tile id) for every
-    (Gaussian, rect tile) pair, Gaussian-major; with ``tile_cull`` the
-    provably dead pairs are dropped; with ``tcap`` each Gaussian emits only
-    its first min(tiles_touched, tcap) rect tiles in row-major order."""
-    dev = prep.depth.device
-    tiles = prep.tiles_touched.to(torch.int64)
+
+class Walk(NamedTuple):
+    """The per-Gaussian inputs of the emission, as both versions read them:
+    each Gaussian walks its first ``tiles`` rect tiles in row-major order."""
+    rect_min: torch.Tensor  # [N, 2] int32
+    rect_size: torch.Tensor  # [N, 2] int32
+    tiles: torch.Tensor  # [N] int32 min(tiles_touched, tcap)
+    mean2d: torch.Tensor  # [N, 2] float32
+    conic: torch.Tensor  # [N, 3] float32
+    thr: Optional[torch.Tensor]  # [N] float32 cull threshold; None: no cull
+
+
+def walk_of(prep, tile_cull: bool = False, tcap: Optional[int] = None):
+    """The Walk of prep: contiguous, in the kernels' types."""
+    tiles = prep.tiles_touched.to(torch.int32)
     if tcap is not None:
         tiles = tiles.clamp_max(tcap)
+    thr = None
+    if tile_cull:
+        thr = (cull_tau(prep.opacity) + _CULL_MARGIN).to(
+            torch.float32).contiguous()
+    return Walk(prep.rect_min.to(torch.int32).contiguous(),
+                prep.rect_size.to(torch.int32).contiguous(),
+                tiles.contiguous(),
+                prep.mean2d.to(torch.float32).contiguous(),
+                prep.conic.to(torch.float32).contiguous(), thr)
+
+
+def emit_walk_plain(w: Walk, grid_x: int, depth=None) -> Emission:
+    """Plain PyTorch version of the emission (the kernels' exact output):
+    every walked rect tile of every Gaussian becomes a pair, then the dead
+    ones are dropped by two boolean masks. Waits for the card three times
+    with a cull (the total, the two masks), once without."""
+    dev = w.tiles.device
+    tiles = w.tiles.to(torch.int64)
     n = tiles.shape[0]
     total = host_read(tiles.sum(), "emit.total") if n else 0
     gid = torch.repeat_interleave(
@@ -113,19 +151,134 @@ def emit_pairs(prep, grid_x: int, tile_cull: bool = False,
     )
     first = torch.cumsum(tiles, 0) - tiles  # exclusive prefix sum
     j = torch.arange(total, device=dev) - first[gid]
-    rect_min = prep.rect_min.to(torch.int64)[gid]
-    rw = prep.rect_size[:, 0].to(torch.int64).clamp_min(1)[gid]
+    rect_min = w.rect_min.to(torch.int64)[gid]
+    rw = w.rect_size[:, 0].to(torch.int64).clamp_min(1)[gid]
     ty = torch.div(j, rw, rounding_mode="floor")
     tx = j - ty * rw
     tile = (rect_min[:, 1] + ty) * grid_x + (rect_min[:, 0] + tx)
-    if tile_cull:
-        cull = (prep.mean2d[gid], prep.conic[gid],
-                cull_tau(prep.opacity)[gid])
-        live = ~_slot_cull_mask(rect_min, tx, ty, cull)
+    lengths = tiles
+    if w.thr is not None:
+        live = ~_slot_cull_mask(rect_min, tx, ty,
+                                (w.mean2d[gid], w.conic[gid], w.thr[gid]))
+        lengths = torch.zeros_like(tiles).index_add_(0, gid,
+                                                     live.to(torch.int64))
         # boolean masks: each waits for the card to count the live pairs
         gid = host_read(lambda: gid[live], "emit.cull_gid")
         tile = host_read(lambda: tile[live], "emit.cull_tile")
-    return gid, tile
+    key = None
+    if depth is not None:
+        key = (tile << 32) | depth_key(depth)[gid]
+    return Emission(gid, tile, lengths, key)
+
+
+_VP, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+
+
+def _walk_args(w: Walk, depth=None):
+    """The kernels' per-Gaussian pointer arguments and N; raises unless
+    every input lies on one CUDA device in its shape."""
+    n, dev = w.tiles.shape[0], w.tiles.device
+    shapes = dict(rect_min=(n, 2), rect_size=(n, 2), mean2d=(n, 2),
+                  conic=(n, 3))
+    for name, x in (*w._asdict().items(), ("depth", depth)):
+        shape = shapes.get(name, (n,))
+        if x is not None and (x.device != dev or x.shape != shape):
+            raise ValueError(f"emission: {name} must be {list(shape)} on "
+                             f"{dev}, got {list(x.shape)} on {x.device}")
+    if dev.type != "cuda":
+        raise ValueError(f"emission kernels: {dev} is not a CUDA device")
+    thr = w.thr is not None
+    return (w.rect_min.data_ptr(), w.rect_size.data_ptr(), w.tiles.data_ptr(),
+            w.mean2d.data_ptr() if thr else None,
+            w.conic.data_ptr() if thr else None,
+            w.thr.data_ptr() if thr else None, w.tiles.shape[0])
+
+
+def count_pairs(w: Walk, grid_x: int):
+    """The count pass (csrc/emit_pairs.cu) on the card: [N] int64, the live
+    tiles among each Gaussian's walked rect tiles."""
+    from eogs2_tpu_torch.ops import cuda_build
+
+    args = _walk_args(w)
+    fn = cuda_build.entry("emit_pairs", "eogs2_emit_count",
+                          [_VP, _VP, _VP, _VP, _VP, _VP, _LL, _I, _VP, _VP])
+    lengths = torch.empty(w.tiles.shape[0], dtype=torch.int64,
+                          device=w.tiles.device)
+    with torch.cuda.device(w.tiles.device):
+        err = fn(*args, grid_x, lengths.data_ptr(),
+                 torch.cuda.current_stream().cuda_stream)
+    cuda_build.check_launch(err, "count_pairs")
+    count_pairs.launches += 1
+    return lengths
+
+
+count_pairs.launches = 0  # kernel launches on the card
+
+
+def write_pairs(w: Walk, grid_x: int, ends, lengths, total: int,
+                depth=None):
+    """The write pass (csrc/emit_pairs.cu) on the card: (gid, tile, key)
+    [total] int64, Gaussian g's live pairs at [ends[g] - lengths[g],
+    ends[g]); key None unless depth [N] is given."""
+    from eogs2_tpu_torch.ops import cuda_build
+
+    dev = w.tiles.device
+    if depth is not None:
+        depth = depth.to(torch.float32).contiguous()
+    args = _walk_args(w, depth)
+    fn = cuda_build.entry("emit_pairs", "eogs2_emit_write",
+                          [_VP, _VP, _VP, _VP, _VP, _VP, _LL, _I, _VP, _VP,
+                           _VP, _VP, _VP, _VP, _VP])
+    gid, tile = (torch.empty(total, dtype=torch.int64, device=dev)
+                 for _ in range(2))
+    key = None if depth is None else torch.empty(total, dtype=torch.int64,
+                                                 device=dev)
+    with torch.cuda.device(dev):
+        err = fn(*args, grid_x, ends.data_ptr(), lengths.data_ptr(),
+                 None if depth is None else depth.data_ptr(), gid.data_ptr(),
+                 tile.data_ptr(), None if key is None else key.data_ptr(),
+                 torch.cuda.current_stream().cuda_stream)
+    cuda_build.check_launch(err, "write_pairs")
+    write_pairs.launches += 1
+    return gid, tile, key
+
+
+write_pairs.launches = 0  # kernel launches on the card
+
+
+def emit_walk(w: Walk, grid_x: int, depth=None) -> Emission:
+    """The emission on the card: the count pass, one prefix sum, one wait
+    for the total (site ``emit.total``), the write pass."""
+    lengths = count_pairs(w, grid_x)
+    ends = torch.cumsum(lengths, 0)
+    n = lengths.shape[0]
+    total = host_read(ends[-1], "emit.total") if n else 0
+    gid, tile, key = write_pairs(w, grid_x, ends, lengths, total, depth)
+    return Emission(gid, tile, lengths, key)
+
+
+def emit_pairs(prep, grid_x: int, tile_cull: bool = False,
+               tcap: Optional[int] = None, depth=None) -> Emission:
+    """Demand-sized emission.
+
+    Returns an Emission: (gid [P] int64 Gaussian index, tile [P] int64 tile
+    id) for every (Gaussian, rect tile) pair, Gaussian-major, each
+    Gaussian's tiles row-major; with ``tile_cull`` the provably dead pairs
+    are dropped; with ``tcap`` each Gaussian emits only its first
+    min(tiles_touched, tcap) rect tiles. ``lengths`` [N] the pairs of each
+    Gaussian; ``key`` the sort key ``tile << 32 | depth_key(depth)[gid]``
+    when ``depth`` [N] is given.
+
+    CPU tensors take the plain version (:func:`emit_walk_plain`); CUDA
+    tensors launch the two passes of csrc/emit_pairs.cu (:func:`emit_walk`)
+    or raise."""
+    dev = prep.tiles_touched.device
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"emit_pairs: unsupported device {dev}")
+    w = walk_of(prep, tile_cull, tcap)
+    if dev.type == "cpu":
+        return emit_walk_plain(w, grid_x, depth)
+    return emit_walk(w, grid_x, depth)
 
 
 def emission_sum(g_sorted, perm, lengths):

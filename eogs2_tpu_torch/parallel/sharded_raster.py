@@ -261,7 +261,8 @@ def sharded_rasterize(
                                 device=prep.mean2d.device)
         prep = prep._replace(mean2d=prep.mean2d + mean2d_ndc_offset * px_scale)
     keys = Preprocessed(*(x.detach() for x in prep))
-    gid, tile = emit_pairs(keys, grid_x, tile_cull=tile_cull, tcap=tcap)
+    gid, tile, lengths, _ = emit_pairs(keys, grid_x, tile_cull=tile_cull,
+                                       tcap=tcap)
     cols = torch.stack([prep.mean2d[:, 0], prep.mean2d[:, 1],
                         prep.conic[:, 0], prep.conic[:, 1], prep.conic[:, 2],
                         prep.opacity] + [feat[:, j]
@@ -269,7 +270,6 @@ def sharded_rasterize(
     if cols.shape[0] != NF_PAY:
         raise ValueError(f"the blend composites 5 channels, got features "
                          f"of shape {tuple(feat.shape)}")
-    lengths = torch.bincount(gid, minlength=keys.depth.shape[0])
     ident = torch.arange(gid.shape[0], device=gid.device)
     pay_em = fr._GatherPairs.apply(cols, gid, ident, lengths, 1)
     out8, stats = _A2ABlend.apply(pay_em, tile, keys.depth[gid], s)

@@ -1005,7 +1005,7 @@ class Trainer:
             prep = preprocess_gaussians(model.xyz, None, opacity, cam.affine,
                                         w, h, alive=model.alive, cov2d=cov2d)
             gx, gy = grid_dims(w, h)
-            _, tile = emit_pairs(prep, gx, tile_cull=rc.tile_cull)
+            tile = emit_pairs(prep, gx, tile_cull=rc.tile_cull).tile
             per_tile = torch.bincount(tile, minlength=gx * gy)
             tpb = -(-gy // n) * gx
             per_band = torch.bincount(tile // tpb, minlength=n)

@@ -13,7 +13,8 @@ decided differently after a one-ulp difference in exp); K1's and K4's
 n_contrib exact. K2, K4 backward and the gradients of rasterize: per payload row /
 per input, max-abs error over the max-abs value < 2e-4 (test_golden.py's
 gradient tolerance; sums over pixels run in another order). K3 equals
-K1/K2 bit for bit (the same arithmetic, another load).
+K1/K2 bit for bit (the same arithmetic, another load). The emission's
+two passes (csrc/emit_pairs.cu) equal the plain emission bit for bit.
 """
 
 import numpy as np
@@ -33,12 +34,18 @@ from eogs2_tpu_torch.ops.fused_raster import (NF, fused_blend_bwd,
                                               fused_blend_fwd,
                                               fused_blend_fwd_plain,
                                               fused_blend_fwd_rows,
-                                              sort_pairs)
-from eogs2_tpu_torch.ops.projection import (compute_cov2d_direct,
+                                              rasterize_fused, sort_pairs)
+from eogs2_tpu_torch.ops.pair_pipeline import (count_pairs, emit_pairs,
+                                               emit_walk_plain, walk_of,
+                                               write_pairs)
+from eogs2_tpu_torch.ops.projection import (Preprocessed,
+                                            compute_cov2d_direct,
                                             preprocess_gaussians)
 from eogs2_tpu_torch.rasterizer import (RasterizeConfig, rasterize,
                                         reference_rasterize)
 from eogs2_tpu_torch.train import gaussian_optimizer
+# tests/ is on sys.path: pytest imports these files by their base name
+from emission_cases import special_prep
 
 
 @pytest.fixture
@@ -619,3 +626,68 @@ def test_densify_and_reset_on_card_match_cpu(cuda):
             assert torch.equal(o_card.state[getattr(m_card, f)][k].cpu(),
                                o_cpu.state[getattr(m_cpu, f)][k]), (f, k)
     assert (o_cpu.state[m_cpu.opacity]["exp_avg"] == 0).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tile_cull,tcap", [(False, None), (False, 3),
+                                            (True, None), (True, 3)])
+def test_emission_matches_plain(cuda, tile_cull, tcap):
+    """The two passes of csrc/emit_pairs.cu against the plain emission on
+    the same walk, bit for bit: gid, tile, the sort key and the counts. The
+    scenes' first rows are special_prep's edge cases (no tile, the whole
+    grid: walked by a warp, wider than tcap; a NaN conic, a NaN opacity, an
+    indefinite conic, a faint Gaussian); at 400^2 many rects are wider than
+    a warp's 32 tiles."""
+    for width, seed in ((96, 0), (400, 1)):
+        prep, _ = special_prep(n=3000, width=width, height=width, seed=seed,
+                               device=cuda)
+        gx = (width + 15) // 16
+        before = (count_pairs.launches, write_pairs.launches)
+        em = emit_pairs(prep, gx, tile_cull=tile_cull, tcap=tcap,
+                        depth=prep.depth)
+        assert (count_pairs.launches, write_pairs.launches) == (
+            before[0] + 1, before[1] + 1)
+        ref = emit_walk_plain(walk_of(prep, tile_cull, tcap), gx, prep.depth)
+        torch.cuda.synchronize()
+        assert ref.gid.shape[0] > 0
+        for f, a, b in zip(em._fields, em, ref):
+            assert a.dtype == torch.int64 and torch.equal(a, b), f
+        if width == 400 and tcap is None:
+            assert int(prep.tiles_touched.gt(32).sum()) > 10
+
+
+@pytest.mark.cuda
+def test_emission_empty_and_all_culled(cuda):
+    """No Gaussian, and Gaussians whose every tile is culled: no pair, every
+    count 0, the render the background's."""
+    prep, feat = special_prep(device=cuda)
+    gx = (96 + 15) // 16
+    empty = Preprocessed(*(x[:0] for x in prep))
+    em = emit_pairs(empty, gx, tile_cull=True, depth=empty.depth)
+    assert em.gid.shape == em.tile.shape == em.key.shape == (0,)
+    assert em.lengths.shape == (0,)
+    rest = Preprocessed(*(x[6:] for x in prep))
+    faint = rest._replace(opacity=torch.full_like(rest.opacity, 1e-3))
+    em = emit_pairs(faint, gx, tile_cull=True, depth=faint.depth)
+    assert em.gid.shape == (0,) and (em.lengths == 0).all()
+    out = rasterize_fused(faint, feat[6:], 96, 96, eogs_features=True,
+                          tile_cull=True)
+    torch.cuda.synchronize()
+    assert int(out.num_pairs) == 0 and (out.out8[..., 5] == 1).all()
+
+
+@pytest.mark.cuda
+def test_sort_pairs_on_card_matches_cpu(cuda):
+    """sort_pairs on the card (the emission kernels, the sort, the ranges,
+    the payload gather) against sort_pairs on the CPU (the plain emission)
+    from the same inputs: pay, tstart, cnt, gid and the counts equal."""
+    prep, feat = special_prep(n=3000, width=256, height=256, seed=4)
+    on_card = Preprocessed(*(x.to(cuda) for x in prep))
+    for cull in (False, True):
+        want = sort_pairs(prep, feat, 256, 256, tile_cull=cull, eogs=True)
+        got = sort_pairs(on_card, feat.to(cuda), 256, 256, tile_cull=cull,
+                         eogs=True)
+        torch.testing.assert_close(got.pay.cpu(), want.pay, rtol=0, atol=0,
+                                   equal_nan=True)
+        for f in ("tstart", "cnt", "gid", "lengths"):
+            assert torch.equal(getattr(got, f).cpu(), getattr(want, f)), f

@@ -186,17 +186,18 @@ def test_emission_once_per_render_and_reads_by_site(trainer):
         assert u["spans"][name]["count"] == RENDERS_A_STEP, name
     assert u["spans"]["resample"]["count"] == 2
     assert u["spans"]["resample.bwd"]["count"] == 2
-    # every wait of a fused step with tile cull for the card, by site: 41,
+    # every wait of a fused step with tile cull for the card, by site: 20,
     # as many as the card's sync debug mode reports in such a step
-    # (scripts/sync_audit.py); on the CPU also the plain blends' ranges
-    card = {"emit.total": 3, "emit.cull_gid": 3, "emit.cull_tile": 3,
-            "sort.lengths": 6, "raster.active": 6, "raster.num_pairs": 3,
-            "raster.scale_ndc": 3, "raster.px_scale": 1,
+    # (scripts/sync_audit.py); on the CPU also the plain emission's two
+    # cull masks and the plain blends' ranges
+    card = {"emit.total": 3, "raster.scale_ndc": 3, "raster.px_scale": 1,
             "projection.px": 3, "camera.row_scale": 3,
             "camera.inter_shift": 3, "camera.sun_scale": 1,
             "train.bg_zero": 1, "resample.longest_run": 2}
-    assert sum(card.values()) == 41
-    assert u["sites"] == dict(card, **{"blend_plain.cnt": 6})
+    assert sum(card.values()) == 20
+    assert u["sites"] == dict(card, **{"emit.cull_gid": 3,
+                                       "emit.cull_tile": 3,
+                                       "blend_plain.cnt": 6})
     assert u["reads"] == sum(u["sites"].values())
     assert u["read_wait_ms"] > 0
 

@@ -123,7 +123,7 @@ def a2a_dropped(rank, n, arrays, width, height, dest_cap):
     cov2d = compute_cov2d_direct(t[1][part], t[2][part], t[5], width, height)
     prep = preprocess_gaussians(t[0][part], None, t[3][part], t[5], width,
                                 height, cov2d=cov2d)
-    _, tile = emit_pairs(prep, gx, tcap=64)
+    tile = emit_pairs(prep, gx, tcap=64).tile
     tpb = -(-gy // n) * gx
     dest = torch.clamp_max(tile // tpb, n - 1)
     counts = torch.bincount(dest, minlength=n)

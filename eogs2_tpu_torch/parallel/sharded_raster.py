@@ -54,6 +54,7 @@ from typing import NamedTuple
 import torch
 import torch.distributed as dist
 
+from eogs2_tpu_torch.observability import span
 from eogs2_tpu_torch.ops import fused_raster as fr
 from eogs2_tpu_torch.ops.binning import depth_key, grid_dims
 from eogs2_tpu_torch.ops.pair_pipeline import emit_pairs
@@ -109,9 +110,10 @@ def _exchange(x, s: A2AStatics):
     result's chunk d came from rank d."""
     if s.n_shards == 1:
         return x
-    x = x.contiguous()
-    out = torch.empty_like(x, memory_format=torch.contiguous_format)
-    dist.all_to_all_single(out, x, group=s.group)
+    with span("a2a.exchange"):
+        x = x.contiguous()
+        out = torch.empty_like(x, memory_format=torch.contiguous_format)
+        dist.all_to_all_single(out, x, group=s.group)
     return out
 
 

@@ -16,10 +16,24 @@ import numpy as np
 import torch
 
 from eogs2_tpu_torch.device import resolve_device
+from eogs2_tpu_torch.observability import host_read
 
 # Fixed WorldView-3 spectral weights (transf_msi_to_pan.py:5-24):
 # pan = w3 * (sum_c w[c] * msi_c + w4)
 WV3_PAN_PARAMS = (0.438469, 1.1331377, -0.6794343, 1.0, 0.0016913427)
+_WV3 = {}  # (dtype, device) -> the weights [3], made once
+
+
+def _wv3(dtype, device) -> torch.Tensor:
+    """The three fixed WV3 weights on ``device``: a host list copied to
+    the card waits for it, so the copy is made once per device and dtype,
+    not at every PAN render."""
+    w = _WV3.get((dtype, device))
+    if w is None:
+        w = _WV3[(dtype, device)] = host_read(
+            lambda: torch.tensor(WV3_PAN_PARAMS[:3], dtype=dtype,
+                                 device=device), "shading.wv3")
+    return w
 
 
 @dataclasses.dataclass
@@ -92,8 +106,7 @@ def msi_to_pan(img_chw, mode: str, weight=None, bias=None):
         return torch.mean(img_chw, dim=0, keepdim=True)
     if mode == "only_one_channel":
         return img_chw[:1]
-    wv3 = torch.tensor(WV3_PAN_PARAMS[:3], dtype=img_chw.dtype,
-                       device=img_chw.device)
+    wv3 = _wv3(img_chw.dtype, img_chw.device)
     if mode == "fixedandtranslate":
         fixed = (torch.sum(wv3[:, None, None] * img_chw, dim=0, keepdim=True)
                  + WV3_PAN_PARAMS[4]).detach()

@@ -601,12 +601,15 @@ def make_train_step(
     def loss_fn(model, sp, m2d_off, view_idx, bg_draws, shear_draws, gates):
         total, metrics, radii = None, {}, None
         for i, (name, closs) in enumerate(mod_losses):
-            if isinstance(view_idx, (list, tuple)):
-                t, m, r = view_batch(closs, model, sp, m2d_off, view_idx,
-                                     bg_draws[:, i], shear_draws[:, i], gates)
-            else:
-                t, m, r = closs(model, sp, m2d_off, view_idx, bg_draws[i],
-                                shear_draws[i], gates)
+            # one span a modality: its renders, shading, flow and losses
+            with span(f"train.forward.{name}"):
+                if isinstance(view_idx, (list, tuple)):
+                    t, m, r = view_batch(closs, model, sp, m2d_off, view_idx,
+                                         bg_draws[:, i], shear_draws[:, i],
+                                         gates)
+                else:
+                    t, m, r = closs(model, sp, m2d_off, view_idx,
+                                    bg_draws[i], shear_draws[i], gates)
             total = t if total is None else total + t
             prefix = "" if n_mod == 1 else f"{name}_"
             metrics.update({prefix + k: v for k, v in m.items()})

@@ -5,8 +5,9 @@ syncs, and time what the tracer costs when it records.
                                   [--out output/sync_audit.json]
 
 On a CUDA card, for one step of each benchmark training configuration
-(``baseogs-1M-1024``, ``eogsplus-1M-1024``) and one request of the render
-cell, at the benchmark's sizes: every sync that
+(``baseogs-1M-1024``, ``eogsplus-1M-1024``, the dual-modality
+``eogsplus-fixed-1M-1024``) and one request of the render cell, at the
+benchmark's sizes: every sync that
 ``torch.cuda.set_sync_debug_mode("warn")`` reports from a frame of
 ``eogs2_tpu_torch`` (by stack), beside the tracer's ``host_read`` count
 and sites of the same unit. Then the cost of recording: blocks of
@@ -117,10 +118,13 @@ def main(argv=None):
 
     dev = torch.device("cuda", 0)
     out = dict(device=torch.cuda.get_device_name(dev), seed=args.seed)
-    train = load_kind(ROOT, "train")
-    for name in ("baseogs-1M-1024", "eogsplus-1M-1024"):
-        cfg, tf = _load("configs", name), _load("traffic", "train")
-        tr, _, _, _ = train.train_setup(cfg, tf, args.seed, dev)
+    train, dual = load_kind(ROOT, "train"), load_kind(ROOT, "train_dual")
+    for name, mix, setup in (
+            ("baseogs-1M-1024", "train", train.train_setup),
+            ("eogsplus-1M-1024", "train", train.train_setup),
+            ("eogsplus-fixed-1M-1024", "train-dual", dual.dual_setup)):
+        cfg, tf = _load("configs", name), _load("traffic", mix)
+        tr, _, _, _ = setup(cfg, tf, args.seed, dev)
         it = [tf["checked_steps"]]
 
         def step():

@@ -121,12 +121,17 @@ def test_spans_nest_under_the_step(trainer, tmp_path):
     [unit] = [s for s in spans if s["name"] == "train.step"]
     assert all(s["unit"] == "train.step" and s["unit_id"] == trainer.it
                for s in spans)
+    # a one-modality (MSI) step opens its one modality span
+    assert [s["name"] for s in spans
+            if s["name"].startswith("train.forward.")] == ["train.forward.msi"]
     want = {"train.forward": "train.step", "train.backward": "train.step",
             "train.optimizer": "train.step",
             "train.maintenance": "train.step",
-            "raster.preprocess": "train.forward",
-            "raster.emission": "train.forward",
-            "raster.blend": "train.forward", "resample": "train.forward",
+            "train.forward.msi": "train.forward",
+            "raster.preprocess": "train.forward.msi",
+            "raster.emission": "train.forward.msi",
+            "raster.blend": "train.forward.msi",
+            "resample": "train.forward.msi",
             "raster.blend_bwd": "train.backward",
             "resample.bwd": "train.backward"}
     for s in spans:
@@ -200,6 +205,53 @@ def test_emission_once_per_render_and_reads_by_site(trainer):
                                        "blend_plain.cnt": 6})
     assert u["reads"] == sum(u["sites"].values())
     assert u["read_wait_ms"] > 0
+
+
+def test_dual_step_opens_one_span_a_modality():
+    """The dual MS step (mode fixed): ``train.forward.msi`` and
+    ``train.forward.pan`` once a step each, under ``train.forward``, each
+    holding its camera's three renders."""
+    scene = scene_from_arrays(make_scene_arrays(
+        n_views=3, width=32, height=32, hf_res=64, n_buildings=2, seed=0,
+        scale=12.0, modality="ms"), device="cpu")
+    cfg = tconfig.eogsplus(iterations=50)
+    tconfig._apply_mode(cfg, "fixed")
+    cfg.model.repeat_gt = False
+    cfg.optimization.iterstart_shadowmapping = 0
+    cfg.optimization.iterstart_L_new_resample = 0
+    tr = tt.Trainer(cfg, scene, RasterizeConfig(binning_mode="fused",
+                                                tile_cull=True),
+                    device="cpu").setup()
+    assert [m[0] for m in tr.modal_views] == ["msi", "pan"]
+    tracer.enable()
+    for it in (1, 2):
+        tr.train_step(it)
+    spans = tracer.spans()
+    by_id = {s["id"]: s for s in spans}
+    u = tracer.per_unit("train.step")
+    assert u["units"] == 2
+    for name in ("train.forward.msi", "train.forward.pan"):
+        assert u["spans"][name]["count"] == 1, name
+        mine = [s for s in spans if s["name"] == name]
+        assert all(by_id[s["parent"]]["name"] == "train.forward"
+                   for s in mine)
+        ids = {s["id"] for s in mine}
+        assert sum(s["parent"] in ids for s in spans
+                   if s["name"] == "raster.emission") == 2 * RENDERS_A_STEP
+    assert u["spans"]["raster.emission"]["count"] == 2 * RENDERS_A_STEP
+
+
+def test_a2a_exchange_span_once_per_exchange(tmp_path):
+    """On the a2a path (2 gloo ranks) ``a2a.exchange`` wraps each
+    all_to_all of the pair windows: one in the forward, one in the
+    backward (on autograd's thread, under ``train.backward``)."""
+    from tests import torch_parallel_worker as W
+
+    rs = W.run(W.a2a_exchange_spans, 2, tmp_path, 64, 64)
+    for r in rs:
+        assert r["names"].count("a2a.exchange") == 2
+        assert sorted(r["exchange_parents"]) == ["train.backward",
+                                                 "train.forward"]
 
 
 def test_host_read_returns_the_plain_read_and_counts_every_read():

@@ -86,6 +86,47 @@ def a2a_render(rank, n, arrays, width, height, cfg_kw, offset=False):
         max_tiles_per_gaussian_seen=int(out.max_tiles_per_gaussian_seen))
 
 
+def a2a_exchange_spans(rank, n, width, height):
+    """One rasterize_a2a forward and backward of this rank's shard of a
+    seeded cloud with the tracer on: the names of the spans it recorded
+    and the parent of each ``a2a.exchange`` span."""
+    from eogs2_tpu_torch.observability import tracer
+    from eogs2_tpu_torch.parallel.mesh import make_mesh
+    from eogs2_tpu_torch.parallel.sharded_raster import rasterize_a2a
+    from eogs2_tpu_torch.rasterizer import RasterizeConfig
+
+    mesh = make_mesh(n)
+    g = torch.Generator().manual_seed(rank)
+    m = 128
+    means = (torch.rand((m, 3), generator=g) * 1.6 - 0.8).requires_grad_(True)
+    scales = torch.full((m, 3), 0.04)
+    quats = torch.tensor([1.0, 0.0, 0.0, 0.0]).repeat(m, 1)
+    opac = torch.full((m,), 0.5)
+    feat = torch.cat([torch.rand((m, 3), generator=g), means.detach()[:, 2:],
+                      torch.ones((m, 1))], 1)
+    affine = torch.eye(3, 4)
+    bg = torch.tensor([0.3, 0.5, 0.2, -1.0, 0.0])
+    cfg = RasterizeConfig(tile_capacity=256, max_tiles_per_gaussian=16,
+                          dest_cap=1 << 12)
+    tracer.reset()
+    tracer.enable()
+    try:
+        with tracer.span("train.step", unit=1):
+            with tracer.span("train.forward"):
+                out = rasterize_a2a(mesh, means, scales, quats, opac, feat,
+                                    affine, bg, width, height, cfg)
+            with tracer.span("train.backward"):
+                (out.image[:3] ** 2).sum().backward()
+        spans = tracer.spans()
+    finally:
+        tracer.enable(False)
+        tracer.reset()
+    names = {s["id"]: s["name"] for s in spans}
+    return dict(names=[s["name"] for s in spans],
+                exchange_parents=[names.get(s["parent"]) for s in spans
+                                  if s["name"] == "a2a.exchange"])
+
+
 def a2a_dropped(rank, n, arrays, width, height, dest_cap):
     """A render whose windows overflow dest_cap: the reported drops against
     this rank's own count of its emission per band, and the gradient of

@@ -9,8 +9,8 @@ section 5):
     PNGs (``io/png.py``).
   * the run-config snapshot (cfg_args parity), JSON.
   * tracing: a torch.profiler context writing a Chrome trace, and the
-    program's own spans and host-read counters (:class:`Tracer`), written
-    beside it.
+    program's own spans, host-read counters and event counts
+    (:class:`Tracer`), written beside it.
   * the CUDA CHECK(debug)/detect_anomaly analog: :func:`nan_guard` raises
     when a function returns a non-finite tensor (JAX: checkify).
 """
@@ -261,14 +261,14 @@ def _union_ns(intervals):
 
 
 class Tracer:
-    """The program's spans and host-read counters, one recorder per
-    process (:data:`tracer`).
+    """The program's spans, host-read counters and event counts, one
+    recorder per process (:data:`tracer`).
 
     It records exactly while a ``torch.profiler`` profile is active, or
     while :meth:`enable` has turned it on. Off, :meth:`span` is one flag
     check that returns a shared no-op context, and :meth:`host_read` one
-    flag check before the plain read: no profiler annotation, no CUDA
-    event, no clock read, no sync.
+    flag check before the plain read, and :meth:`count` one flag check: no
+    profiler annotation, no CUDA event, no clock read, no sync.
 
     On, a span records its name, its host start and end
     (``time.perf_counter_ns``), its parent span and the unit it belongs to
@@ -280,7 +280,7 @@ class Tracer:
     kernels. Spans that autograd's engine thread opens in a backward take
     the span their unit's thread waits in (``train.backward``) as parent.
     Closed spans are kept in a bounded buffer (the oldest dropped first,
-    counted in ``dropped``); unit and host-read counts are totals.
+    counted in ``dropped``); unit, host-read and event counts are totals.
 
     Host clocks run slow under the profiler (a baseogs step on an H100:
     154 ms traced, 118-132 ms untraced); device intervals and counts do
@@ -303,6 +303,7 @@ class Tracer:
             self._units = collections.Counter()
             self._unit_seq = collections.Counter()
             self._reads = {}
+            self._counts = collections.Counter()
             self.dropped = 0
 
     def enable(self, on: bool = True):
@@ -347,6 +348,15 @@ class Tracer:
             r[0] += syncs
             r[1] += dt
         return value
+
+    def count(self, name: str, n: int = 1):
+        """On, counts ``n`` events ``name`` under the current unit (a plain
+        count: no wait, no time)."""
+        if not (self._forced or _autograd_profiler._is_profiler_enabled):
+            return
+        with self._lock:
+            unit = self._unit[0] if self._unit is not None else ""
+            self._counts[(unit, name)] += n
 
     def spans(self):
         """The closed spans as dicts, device intervals resolved (syncs
@@ -402,8 +412,9 @@ class Tracer:
     def per_unit(self, unit: str) -> Optional[dict]:
         """The summary of the unit spans ``unit`` over their count: {units,
         spans {name: {count, host_ms, self_ms, device_ms}}, reads,
-        read_wait_ms, sites {site: count}}, each a mean a unit; None when
-        no such unit was recorded."""
+        read_wait_ms, sites {site: count}, counts {name: events}
+        (:meth:`count`)}, each a mean a unit; None when no such unit was
+        recorded."""
         s = self.summary()
         n = s["units"].get(unit, 0)
         if not n:
@@ -411,10 +422,14 @@ class Tracer:
         spans = {name: {k: v / n for k, v in acc.items()}
                  for name, acc in s["spans"].get(unit, {}).items()}
         sites = s["reads"].get(unit, {})
+        with self._lock:
+            counts = {k: c / n for (u, k), c in self._counts.items()
+                      if u == unit}
         return dict(units=n, spans=spans,
                     reads=sum(r["count"] for r in sites.values()) / n,
                     read_wait_ms=sum(r["wait_ms"] for r in sites.values()) / n,
-                    sites={k: r["count"] / n for k, r in sites.items()})
+                    sites={k: r["count"] / n for k, r in sites.items()},
+                    counts=counts)
 
     def dump(self, path: str):
         """Write the spans (``spans``: id, name, parent, unit, unit_id,

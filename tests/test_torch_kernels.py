@@ -15,13 +15,15 @@ per input, max-abs error over the max-abs value < 2e-4 (test_golden.py's
 gradient tolerance; sums over pixels run in another order). K3 equals
 K1/K2 bit for bit (the same arithmetic, another load). The emission's
 two passes (csrc/emit_pairs.cu) equal the plain emission bit for bit.
+Beside them, render_view_full's copy-out into page-locked host slots
+equals the blocking copies it replaced bit for bit.
 """
 
 import numpy as np
 import pytest
 import torch
 
-from eogs2_tpu_torch import densify
+from eogs2_tpu_torch import densify, pipeline
 from eogs2_tpu_torch.config import baseogs
 from eogs2_tpu_torch.model import GaussianModel
 from eogs2_tpu_torch.ops.blend_cuda import (blend_backward,
@@ -691,3 +693,77 @@ def test_sort_pairs_on_card_matches_cpu(cuda):
                                    equal_nan=True)
         for f in ("tstart", "cnt", "gid", "lengths"):
             assert torch.equal(getattr(got, f).cpu(), getattr(want, f)), f
+
+
+@pytest.mark.cuda
+def test_render_view_full_copies_out_through_page_locked_slots(cuda,
+                                                              monkeypatch):
+    """render_view_full on the card, five requests at a 64^2 scene (two
+    views) with sun and shading, the first result kept whole and the
+    second by a slice of one output: every output equals the blocking
+    ``.cpu().numpy()`` copy of the same device output bit for bit and lies
+    in page-locked memory; one ``serve.to_host`` wait a request; the kept
+    arrays read the same after the later requests, the third of which
+    takes a new slot that the last two reuse."""
+    from eogs2_tpu_torch.data.synthetic import (make_scene_arrays,
+                                                scene_from_arrays)
+    from eogs2_tpu_torch.model import init_from_points
+    from eogs2_tpu_torch.observability import tracer
+    from eogs2_tpu_torch.shading import init_shading_params
+
+    scene = scene_from_arrays(make_scene_arrays(
+        n_views=3, width=64, height=64, hf_res=128, n_buildings=4, seed=0,
+        scale=12.0), device=cuda)
+    n = scene.init_xyz.shape[0]
+    model = init_from_points(scene.init_xyz, scene.init_rgb, n,
+                             opacity_init_value=0.5, device=cuda)
+    views = scene.train_views
+    shading = init_shading_params(len(views), device=cuda)
+    rcfg = RasterizeConfig(binning_mode="fused", tile_cull=True)
+    slot_to_host = pipeline.to_host
+    wants = []
+
+    def to_host(outs, hn, wn, slots=None):
+        assert (hn, wn) == (64, 64)  # a whole number of tiles: no crop
+        wants.append({k: None if x is None else x.cpu().numpy()
+                      for k, x in outs.items()})
+        return slot_to_host(outs, hn, wn, slots)
+
+    monkeypatch.setattr(pipeline, "to_host", to_host)
+    monkeypatch.setattr(pipeline, "HOST_SLOTS",
+                        pipeline.HostSlots(pipeline.page_locked))
+
+    def request(i):
+        cam = views[i % len(views)].camera
+        assert cam.has_sun
+        out = pipeline.render_view_full(model, cam, rcfg, shading=shading,
+                                        view_idx=i % len(views))
+        for k, v in wants[-1].items():
+            if v is None:
+                assert out[k] is None, k
+                continue
+            assert out[k].shape == v.shape and out[k].dtype == v.dtype, k
+            assert out[k].tobytes() == v.tobytes(), k
+            assert torch.from_numpy(out[k]).is_pinned(), k
+        return out
+
+    tracer.reset()
+    tracer.enable()
+    try:
+        kept = request(0)
+        snap = {k: None if v is None else v.copy() for k, v in kept.items()}
+        part = request(1)["final"][0, 3:9]
+        part_snap = part.copy()
+        for i in (2, 3, 4):
+            request(i)
+        u = tracer.per_unit("serve.request")
+    finally:
+        tracer.enable(False)
+        tracer.reset()
+    assert kept["shadowmap"] is not None
+    assert not np.shares_memory(kept["shaded"], kept["final"])
+    for k, v in snap.items():
+        assert v is None or kept[k].tobytes() == v.tobytes(), k
+    assert part.tobytes() == part_snap.tobytes()
+    assert u["units"] == 5 and u["sites"]["serve.to_host"] == 1
+    assert u["counts"] == {"serve.slot.new": 0.6, "serve.slot.reused": 0.4}

@@ -127,19 +127,26 @@ def sort_pairs(prep: Preprocessed, features, width: int, height: int,
         em = emit_pairs(keys, grid_x, tile_cull=tile_cull, depth=depth)
         gid, perm, tstart, cnt = sort_emission(em, grid_x * grid_y)
         lengths = em.lengths
+    pay = _GatherPairs.apply(payload(prep, features, eogs, rows), gid, perm,
+                             lengths, 0 if rows else 1)
+    return SortedPairs(pay.contiguous(), tstart, cnt, gid, lengths)
+
+
+def payload(prep: Preprocessed, features, eogs: bool = False,
+            rows: bool = False):
+    """The per-Gaussian payload the pairs gather: [11, N], or [N, 16] with
+    ``rows`` (5 zero fields more); eogs as in sort_pairs."""
+    if features.shape[1] != NC:
+        raise ValueError(f"the blend composites {NC} channels, got features "
+                         f"of shape {tuple(features.shape)}")
     cols = [prep.mean2d[:, 0], prep.mean2d[:, 1], prep.conic[:, 0],
             prep.conic[:, 1], prep.conic[:, 2], prep.opacity]
+    cols += [features[:, j] for j in range(NC - 1 if eogs else NC)]
     if eogs:
-        cols += [features[:, j] for j in range(4)]
-        cols.append(torch.ones_like(depth))
-    else:
-        cols += [features[:, j] for j in range(features.shape[1])]
+        cols.append(torch.ones_like(prep.opacity))
     if rows:
-        x = torch.stack(cols + [torch.zeros_like(depth)] * (NFR - NF), 1)
-        pay = _GatherPairs.apply(x, gid, perm, lengths, 0)
-    else:
-        pay = _GatherPairs.apply(torch.stack(cols, 0), gid, perm, lengths, 1)
-    return SortedPairs(pay.contiguous(), tstart, cnt, gid, lengths)
+        cols += [torch.zeros_like(prep.opacity)] * (NFR - NF)
+    return torch.stack(cols, 1 if rows else 0)
 
 
 def _tile_chunks(cnt, chunk_elems: int):
@@ -471,9 +478,6 @@ def rasterize_fused(prep: Preprocessed, features, width: int, height: int,
     payload_col: the column payload and K1/K2; False: the row payload and
     K3 (the same output, bit for bit)."""
     grid_x, _ = grid_dims(width, height)
-    if features.shape[1] != NC:
-        raise ValueError(f"the fused blend composites {NC} channels, got "
-                         f"features of shape {tuple(features.shape)}")
     eogs = bool(eogs_features)
     rows = not payload_col
     sp = sort_pairs(prep, features, width, height, tile_cull, eogs, rows)

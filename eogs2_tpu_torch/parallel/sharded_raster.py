@@ -8,10 +8,11 @@ offset. Each rank of the mesh axis "g" holds N/n Gaussians and owns one
 contiguous band of tile rows (so an image's SSIM and resample halos never
 cross more than a band edge). Per rank:
 
-  1. preprocess its Gaussians; emit its pairs: each Gaussian's first
-     min(tiles, tcap) rect tiles, row-major, with ``tile_cull`` dropping the
-     provably dead ones (JAX's single-tier ``_emission_keys`` pair set, in
-     the port's compact Gaussian-major emission, ops/pair_pipeline.emit_pairs);
+  1. preprocess its Gaussians (``rasterizer.preprocess``); emit its pairs:
+     each Gaussian's first min(tiles, tcap) rect tiles, row-major, with
+     ``tile_cull`` dropping the provably dead ones (JAX's single-tier
+     ``_emission_keys`` pair set, in the port's compact Gaussian-major
+     emission, ops/pair_pipeline.emit_pairs);
   2. ONE stable sort by destination band; window d (``_windows``) is the
      ``dest_cap`` rows starting at the first pair for rank d; rows past a
      window's count (or past ``dest_cap``: dropped, counted in
@@ -58,15 +59,13 @@ from eogs2_tpu_torch.observability import span
 from eogs2_tpu_torch.ops import fused_raster as fr
 from eogs2_tpu_torch.ops.binning import depth_key, grid_dims
 from eogs2_tpu_torch.ops.pair_pipeline import emit_pairs
-from eogs2_tpu_torch.ops.projection import (TILE, Preprocessed,
-                                            compute_cov2d_direct,
-                                            preprocess_gaussians)
+from eogs2_tpu_torch.ops.projection import TILE, Preprocessed
 from eogs2_tpu_torch.parallel.distributed import (all_gather_cat,
                                                   group_size, sum_grad)
 from eogs2_tpu_torch.parallel.mesh import axis_group, axis_rank, axis_size
+from eogs2_tpu_torch.rasterizer import RasterOut, preprocess, to_ndc
 
-NF_PAY = 11  # payload floats per pair: mx, my, ca, cb, cc, op, f0..f4
-NX = NF_PAY + 2  # exchanged per pair: tile, depth and the payload
+NX = fr.NF + 2  # exchanged per pair: tile, depth and the 11 payload fields
 
 
 class A2AStatics(NamedTuple):
@@ -163,7 +162,7 @@ class _A2ABlend(torch.autograd.Function):
             pay = srt[:, 2:].t().contiguous()
             out8 = fr.fused_blend_fwd(pay, tstart, cnt_k, s.grid_x, tile0)
         else:
-            pay = torch.nn.functional.pad(srt[:, 2:], (0, fr.NFR - NF_PAY))
+            pay = torch.nn.functional.pad(srt[:, 2:], (0, fr.NFR - fr.NF))
             out8 = fr.fused_blend_fwd_rows(pay, tstart, cnt_k, s.grid_x,
                                            tile0)
         stats = torch.stack([
@@ -187,7 +186,7 @@ class _A2ABlend(torch.autograd.Function):
                                    s.grid_x, tile0).t()
         else:
             g = fr.fused_blend_bwd_rows(pay, tstart, cnt_k, out8, g_out8,
-                                        s.grid_x, tile0)[:, :NF_PAY]
+                                        s.grid_x, tile0)[:, :fr.NF]
         # the rows no tile walked (pads, pairs past tile_capacity) were not
         # written by the kernel: zero them
         r = stile.shape[0]
@@ -199,7 +198,7 @@ class _A2ABlend(torch.autograd.Function):
         g = torch.where(walked[:, None], g, 0.0)
         g_recv = torch.empty_like(g)
         g_recv[perm2] = g  # back to receive order (a permutation)
-        g_send = _exchange(g_recv.reshape(s.n_shards, s.dest_cap, NF_PAY), s)
+        g_send = _exchange(g_recv.reshape(s.n_shards, s.dest_cap, fr.NF), s)
         g_send = torch.where(_send_ok(counts, s)[..., None], g_send, 0.0)
         pl = em_s.shape[0]
         g_sorted1 = _unwindows(g_send, starts, pl, s.dest_cap, s.n_shards)
@@ -254,26 +253,14 @@ def sharded_rasterize(
                    k_cap=int(tile_capacity), col=col)
     affine = sum_grad(affine, group)
     bg = sum_grad(bg, group)
-    cov2d = compute_cov2d_direct(scales, quats, affine, width, height)
-    prep = preprocess_gaussians(means3d, None, opacities, affine, width,
-                                height, alive=alive, cov2d=cov2d)
-    if mean2d_ndc_offset is not None:
-        px_scale = torch.tensor([0.5 * width, 0.5 * height],
-                                dtype=prep.mean2d.dtype,
-                                device=prep.mean2d.device)
-        prep = prep._replace(mean2d=prep.mean2d + mean2d_ndc_offset * px_scale)
+    prep = preprocess(means3d, scales, quats, opacities, affine, width,
+                      height, alive=alive, mean2d_ndc_offset=mean2d_ndc_offset)
     keys = Preprocessed(*(x.detach() for x in prep))
     gid, tile, lengths, _ = emit_pairs(keys, grid_x, tile_cull=tile_cull,
                                        tcap=tcap)
-    cols = torch.stack([prep.mean2d[:, 0], prep.mean2d[:, 1],
-                        prep.conic[:, 0], prep.conic[:, 1], prep.conic[:, 2],
-                        prep.opacity] + [feat[:, j]
-                                         for j in range(feat.shape[1])])
-    if cols.shape[0] != NF_PAY:
-        raise ValueError(f"the blend composites 5 channels, got features "
-                         f"of shape {tuple(feat.shape)}")
     ident = torch.arange(gid.shape[0], device=gid.device)
-    pay_em = fr._GatherPairs.apply(cols, gid, ident, lengths, 1)
+    pay_em = fr._GatherPairs.apply(fr.payload(prep, feat), gid, ident,
+                                   lengths, 1)
     out8, stats = _A2ABlend.apply(pay_em, tile, keys.depth[gid], s)
 
     img8 = out8.reshape(rows_per, grid_x, TILE, TILE, 8)
@@ -286,15 +273,13 @@ def sharded_rasterize(
         torch.tensor(gid.shape[0], device=stats.device),
         tiles.max() if tiles.numel() else stats.new_zeros(())])])
     every = _gather_stats(local, group)  # [n, 5]
-    scale_ndc = torch.tensor([2.0 / width, 2.0 / height],
-                             dtype=prep.mean2d.dtype,
-                             device=prep.mean2d.device)
     return dict(
         image=image, final_t=final_t, radii=prep.radius,
         max_tile_count=every[:, 0].max(), max_dest_count=every[:, 1].max(),
         dropped_pairs=every[:, 2].sum(),
         max_tiles_per_gaussian_seen=every[:, 4].max(),
-        pairs_per_chip=every[:, 3], mean2d_ndc=prep.mean2d.detach() * scale_ndc,
+        pairs_per_chip=every[:, 3],
+        mean2d_ndc=to_ndc(prep.mean2d.detach(), width, height),
     )
 
 
@@ -321,11 +306,6 @@ def rasterize_a2a(
     ``dropped_pairs`` the pairs past it (zero gradient). Reads
     ``max_tiles_per_gaussian``, ``tile_capacity``, ``dest_cap``,
     ``payload_col`` and ``tile_cull`` of ``config``."""
-    from eogs2_tpu_torch.rasterizer import RasterOut
-
-    if alive is None:
-        alive = torch.ones(means3d.shape[0], dtype=torch.bool,
-                           device=means3d.device)
     out = sharded_rasterize(
         mesh, means3d, scales, quats, opacities, feat, alive, affine, bg,
         width, height, tcap=config.max_tiles_per_gaussian,

@@ -132,18 +132,9 @@ def rasterize(
     Runs on the device of its tensors."""
     if config.binning_mode not in ("fused", "gather", "sorted"):
         raise ValueError(f"unknown binning_mode {config.binning_mode!r}")
-    with span("raster.preprocess"):
-        cov2d = compute_cov2d_direct(scales, quats, affine, width, height)
-        prep = preprocess_gaussians(
-            means3d, None, opacities, affine, width, height,
-            antialiasing=config.antialiasing, alive=alive, cov2d=cov2d,
-        )
-        if mean2d_ndc_offset is not None:
-            px_scale = host_read(lambda: torch.tensor(
-                [0.5 * width, 0.5 * height], dtype=prep.mean2d.dtype,
-                device=prep.mean2d.device), "raster.px_scale")
-            prep = prep._replace(
-                mean2d=prep.mean2d + mean2d_ndc_offset * px_scale)
+    prep = preprocess(means3d, scales, quats, opacities, affine, width,
+                      height, antialiasing=config.antialiasing, alive=alive,
+                      mean2d_ndc_offset=mean2d_ndc_offset)
 
     grid_x, grid_y = grid_dims(width, height)
     if config.binning_mode == "fused":
@@ -182,6 +173,33 @@ def rasterize(
                      features.shape[-1], width, height, grid_x, grid_y)
 
 
+def preprocess(means3d, scales, quats, opacities, affine, width: int,
+               height: int, antialiasing: bool = False, alive=None,
+               mean2d_ndc_offset=None):
+    """The front half of ``rasterize`` and of the a2a path: projection and
+    culling, and the optional [N, 2] NDC offset added to the centers."""
+    with span("raster.preprocess"):
+        cov2d = compute_cov2d_direct(scales, quats, affine, width, height)
+        prep = preprocess_gaussians(means3d, None, opacities, affine, width,
+                                    height, antialiasing=antialiasing,
+                                    alive=alive, cov2d=cov2d)
+        if mean2d_ndc_offset is not None:
+            px_scale = host_read(lambda: torch.tensor(
+                [0.5 * width, 0.5 * height], dtype=prep.mean2d.dtype,
+                device=prep.mean2d.device), "raster.px_scale")
+            prep = prep._replace(
+                mean2d=prep.mean2d + mean2d_ndc_offset * px_scale)
+    return prep
+
+
+def to_ndc(mean2d, width: int, height: int):
+    """Pixel centers [N, 2] -> NDC units (the ``mean2d_ndc`` output)."""
+    scale_ndc = host_read(lambda: torch.tensor(
+        [2.0 / width, 2.0 / height], dtype=mean2d.dtype,
+        device=mean2d.device), "raster.scale_ndc")
+    return mean2d * scale_ndc
+
+
 def _assemble(prep, out, final_t, num_pairs, max_tile_count, c,
               width, height, grid_x, grid_y) -> RasterOut:
     """Tile-major [T, P, C] blend output -> RasterOut image/stats."""
@@ -191,14 +209,11 @@ def _assemble(prep, out, final_t, num_pairs, max_tile_count, c,
     ft = final_t.reshape(grid_y, grid_x, TILE, TILE)
     ft = ft.permute(0, 2, 1, 3).reshape(grid_y * TILE, grid_x * TILE)
     ft = ft[:height, :width]
-    scale_ndc = host_read(lambda: torch.tensor(
-        [2.0 / width, 2.0 / height], dtype=prep.mean2d.dtype,
-        device=prep.mean2d.device), "raster.scale_ndc")
     return RasterOut(
         image=img.permute(2, 0, 1),
         final_t=ft,
         radii=prep.radius,
-        mean2d_ndc=prep.mean2d * scale_ndc,
+        mean2d_ndc=to_ndc(prep.mean2d, width, height),
         num_pairs=num_pairs,
         max_tile_count=max_tile_count,
         max_tiles_per_gaussian_seen=prep.tiles_touched.max(),

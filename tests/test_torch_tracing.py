@@ -244,12 +244,14 @@ def test_dual_step_opens_one_span_a_modality():
 def test_a2a_exchange_span_once_per_exchange(tmp_path):
     """On the a2a path (2 gloo ranks) ``a2a.exchange`` wraps each
     all_to_all of the pair windows: one in the forward, one in the
-    backward (on autograd's thread, under ``train.backward``)."""
+    backward (on autograd's thread, under ``train.backward``). The render's
+    front half is the one-card ``raster.preprocess``, once."""
     from tests import torch_parallel_worker as W
 
     rs = W.run(W.a2a_exchange_spans, 2, tmp_path, 64, 64)
     for r in rs:
         assert r["names"].count("a2a.exchange") == 2
+        assert r["names"].count("raster.preprocess") == 1
         assert sorted(r["exchange_parents"]) == ["train.backward",
                                                  "train.forward"]
 

@@ -26,16 +26,26 @@ the dense routes were added, so that their times stay comparable):
   3. the serving path at full width: 1,000,000 seeded Gaussians on a
      synthetic heightfield, a 1024x1024 view with its sun model (the sun
      render is 2048x2048) through render_view_full with sun and shading,
-     then nadir_dsm; K1's and the emission passes' launch counts over that
-     run (one count and one write pass a render), its median time of 3
+     then nadir_dsm; K1's, the emission passes' and the preprocess
+     kernels' launch counts over that run (one count and one write pass
+     and one preprocess forward a render, no backward), its median time of 3
      runs after one warm-up, peak memory, the outputs checked; one profiled
      run of each entry point (device time by kernel, device busy share);
      K1 against its plain version at each of the three renders' exact
      inputs, with its time, the plain version's and its bound; the
-     emission's two passes (csrc/emit_pairs.cu) against the plain emission
+     emission's two passes (csrc/emit_pairs.cu), fed by the main path's
+     preprocess, against the plain emission
      at the view's and the sun's inputs with tile_cull and at the view's
      without it at tcap 16: gid, tile, sort key and counts bit-equal, with
-     both times and the bound;
+     both times and the bound; the preprocess's forward and backward
+     kernels (csrc/preprocess.cu) against the plain preprocess at the 1M
+     Gaussians through the view, the sun and the view at the dual cell's
+     256x256 MSI canvas, with an alive mask and an NDC offset: conic,
+     opacity and radius bit-equal, mean2d and depth within 2 ulp, rects
+     apart only where mean2d is; every gradient, the affine's and the
+     offset's too, within 1e-5 (gap of the norms) of autograd's and of the
+     plain twin's, two backward launches bit-equal; both kernels' times,
+     the plain versions' and the byte bounds;
   4. K2 (csrc/fused_blend_bwd.cu) against fused_blend_bwd_plain on the same
      three scenes with a seeded random cotangent, per payload row max-abs
      error over the row's max-abs value <= 2e-4 (tests/test_golden.py's
@@ -50,8 +60,8 @@ the dense routes were added, so that their times stay comparable):
      camera on from iteration 1 (every step renders main 1024^2, sun 2048^2
      and random 1024^2, each forward and backward) on the fused route with
      tile_cull; 2 warm-up steps, then 10 timed steps, each ending in
-     torch.cuda.synchronize(); K1, K2 and the emission passes' launches
-     over the timed steps,
+     torch.cuda.synchronize(); K1, K2, the emission passes' and the
+     preprocess kernels' launches over the timed steps (3 each a step),
      peak memory, every metric finite, parameters moved, alive before and
      after; one profiled step; K1 and K2 at each of the three renders'
      exact inputs of a step (captured from the step; K1's out8 equal to the
@@ -134,7 +144,9 @@ the dense routes were added, so that their times stay comparable):
      versions (phase 5's tolerances); phase_correlation_shift of a PAN
      render against itself rolled by (+3, -2) px within 0.05 px; then the
      dual MS mode "fixed" (msi and pan per step: 6 renders) for 5 steps
-     with the flow phase and 5 without. K1 and K2 launches of both runs;
+     with the flow phase and 5 without. K1 and K2 launches of both runs,
+     the preprocess kernels' of the dual one (6 forward, 6 backward a
+     step);
  13. full-eval through cli.main at a reduced size (run after phase 9):
      make-synthetic of a 256x256 scene with 9 views, full-eval (baseogs,
      --raster-mode fused, 200 iterations, --export-mesh): train, render,
@@ -183,7 +195,8 @@ the dense routes were added, so that their times stay comparable):
      CLI: train --n-devices 4 --raster-backend a2a, render, tsdf
      --n-devices 4, eval-dsm, and a one-card restore of the checkpoint;
  17. the kernel table line (K1's and K2's launches include phases 10, 11,
-     12, 13, 15 and 16; K3's the row-payload steps of 15 and 16), then the
+     12, 13, 15 and 16; K3's the row-payload steps of 15 and 16; the
+     preprocess's the counted runs of 3, 5 and 12's dual mode), then the
      last line.
 
 Beside these, after phase 5 two fused Trainers from one seed take step 1
@@ -692,6 +705,7 @@ def phase_serve(device, n=1_000_000, width=1024):
     from eogs2_tpu_torch.ops.fused_raster import (fused_blend_fwd,
                                                   fused_blend_fwd_plain)
     from eogs2_tpu_torch.ops.pair_pipeline import count_pairs, write_pairs
+    from eogs2_tpu_torch.ops.projection import preprocess_bwd, preprocess_fwd
     from eogs2_tpu_torch.pipeline import nadir_dsm, render_view_full
     from eogs2_tpu_torch.rasterizer import RasterizeConfig
 
@@ -712,16 +726,20 @@ def phase_serve(device, n=1_000_000, width=1024):
     torch.cuda.reset_peak_memory_stats()
     fused_blend_fwd.launches = 0
     count_pairs.launches = write_pairs.launches = 0
+    preprocess_fwd.launches = preprocess_bwd.launches = 0
     out = rvf()
     torch.cuda.synchronize()
     launches_rvf = fused_blend_fwd.launches
     emit_rvf = (count_pairs.launches, write_pairs.launches)
+    prep_rvf = (preprocess_fwd.launches, preprocess_bwd.launches)
     fused_blend_fwd.launches = 0
     count_pairs.launches = write_pairs.launches = 0
+    preprocess_fwd.launches = preprocess_bwd.launches = 0
     profile, dsm, nout = nadir()
     torch.cuda.synchronize()
     launches_nadir = fused_blend_fwd.launches
     emit_nadir = (count_pairs.launches, write_pairs.launches)
+    prep_nadir = (preprocess_fwd.launches, preprocess_bwd.launches)
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
     if launches_rvf != 2 or launches_nadir != 1:
         raise AssertionError(f"K1 launches: render_view_full {launches_rvf} "
@@ -730,6 +748,10 @@ def phase_serve(device, n=1_000_000, width=1024):
         raise AssertionError(f"emission (count, write) launches: "
                              f"render_view_full {emit_rvf} (want (2, 2)), "
                              f"nadir_dsm {emit_nadir} (want (1, 1))")
+    if prep_rvf != (2, 0) or prep_nadir != (1, 0):
+        raise AssertionError(f"preprocess (forward, backward) launches: "
+                             f"render_view_full {prep_rvf} (want (2, 0)), "
+                             f"nadir_dsm {prep_nadir} (want (1, 0))")
 
     rvf_ms, rvf_all = median_ms(rvf)
     nadir_ms, nadir_all = median_ms(nadir)
@@ -746,6 +768,8 @@ def phase_serve(device, n=1_000_000, width=1024):
              k1_launches_nadir_dsm=launches_nadir,
              emit_launches_render_view_full=emit_rvf,
              emit_launches_nadir_dsm=emit_nadir,
+             preprocess_launches_render_view_full=prep_rvf,
+             preprocess_launches_nadir_dsm=prep_nadir,
              **check_serve_outputs(out, nout, dsm, scene, width), **CARD))
 
     # ---- K1 at the three renders' exact inputs --------------------------
@@ -764,8 +788,10 @@ def phase_serve(device, n=1_000_000, width=1024):
                  **rep, **CARD))
         del sp, k
     emission = phase_emission_at_serve_shape(model, view, scene, width)
+    prep = phase_preprocess_at_main_shapes(model, view, width)
     return (per_render, launches_rvf + launches_nadir,
-            sum(emit_rvf) + sum(emit_nadir), emission)
+            sum(emit_rvf) + sum(emit_nadir), emission,
+            prep_rvf[0] + prep_nadir[0], prep)
 
 
 EMIT_OPS_PER_TILE = 110  # the cull test's FP32 operations
@@ -796,9 +822,11 @@ def emission_bound(walk, pairs):
 
 def phase_emission_at_serve_shape(model, view, scene, width):
     """The emission's two passes (csrc/emit_pairs.cu) against the plain
-    emission on the same walk, at the serving renders' exact inputs (the
-    1024^2 view and its 2048^2 sun with tile_cull, as the benchmark's cells
-    render; the view without it and at tcap 16, the dense modes'): gid,
+    emission on the same walk, fed by the main path's preprocess
+    (rasterizer.preprocess: on the card csrc/preprocess.cu's forward
+    kernel), at the serving renders' exact inputs (the 1024^2 view and its
+    2048^2 sun with tile_cull, as the benchmark's cells render; the view
+    without it and at tcap 16, the dense modes'): gid,
     tile, sort key and counts bit-equal. Times of both (the whole emission:
     passes, prefix sum, the read of the total) and the bound."""
     import torch
@@ -807,8 +835,7 @@ def phase_emission_at_serve_shape(model, view, scene, width):
     from eogs2_tpu_torch.ops.pair_pipeline import (count_pairs, emit_pairs,
                                                    emit_walk_plain, walk_of,
                                                    write_pairs)
-    from eogs2_tpu_torch.ops.projection import (compute_cov2d_direct,
-                                                preprocess_gaussians)
+    from eogs2_tpu_torch.rasterizer import preprocess
     from eogs2_tpu_torch.renderer import gaussian_features
 
     renders = serve_renders(view, scene, width)
@@ -816,12 +843,10 @@ def phase_emission_at_serve_shape(model, view, scene, width):
     reps = {}
     for name, cull, tcap in cases:
         cam, w = renders[name]
-        with torch.no_grad():
-            affine = cam.resize_canvas(w, w).affine
-            cov2d = compute_cov2d_direct(model.get_scaling(), model.rotation,
-                                         affine, w, w)
-            prep = preprocess_gaussians(model.xyz, None, model.get_opacity(),
-                                        affine, w, w, cov2d=cov2d)
+        with torch.no_grad():  # the preprocess the main path runs
+            prep = preprocess(model.xyz, model.get_scaling(), model.rotation,
+                              model.get_opacity(),
+                              cam.resize_canvas(w, w).affine, w, w)
             depth = -gaussian_features(model, cam)[:, 3]
         gx, _ = grid_dims(w, w)
         walk = walk_of(prep, cull, tcap)
@@ -856,6 +881,176 @@ def phase_emission_at_serve_shape(model, view, scene, width):
         log(dict(phase="emission_at_serve_shape", render=name, width=w,
                  height=w, tile_cull=cull, tcap=tcap, **rep, **CARD))
         del prep, walk, depth
+    return reps
+
+
+# each per-Gaussian input read once and each output written once: forward
+# xyz, scale, quat, opacity, alive and the NDC offset in, Preprocessed out;
+# backward xyz, scale, quat, opacity and the four cotangents in, the
+# gradients of xyz, scale, quat, opacity and the offset out
+PREP_FWD_BYTES = 12 + 12 + 16 + 4 + 1 + 8 + 52
+PREP_BWD_BYTES = 12 + 12 + 16 + 4 + 28 + 52
+PREP_LEAVES = ("means3d", "scales", "quats", "opacities", "affine", "offset")
+
+
+def preprocess_plain(means, scales, quats, opac, affine, w, h, alive,
+                     offset):
+    """rasterizer.preprocess's plain tensor code where the inputs lie (on
+    the card the rasterizer takes the kernels)."""
+    import torch
+
+    from eogs2_tpu_torch.ops.projection import (compute_cov2d_direct,
+                                                preprocess_gaussians)
+
+    cov2d = compute_cov2d_direct(scales, quats, affine, w, h)
+    prep = preprocess_gaussians(means, None, opac, affine, w, h, alive=alive,
+                                cov2d=cov2d)
+    px = torch.tensor([0.5 * w, 0.5 * h], device=means.device)
+    return prep._replace(mean2d=prep.mean2d + offset * px)
+
+
+def ulps(got, want):
+    """|got - want| in units of the last place of want, or of 1 where
+    |want| < 1 (tests/test_torch_kernels.py's rule)."""
+    import torch
+
+    w = want.abs().clamp_min(1.0)
+    return (got - want).abs() / (torch.nextafter(w, w + 1) - w)
+
+
+def grad_gap(got, want):
+    """The gap of the norms over the larger norm; inf where the NaNs of
+    the two differ."""
+    import torch
+
+    if not torch.equal(got.isnan(), want.isnan()):
+        return float("inf")
+    got, want = got.nan_to_num(), want.nan_to_num()
+    scale = max(float(got.norm()), float(want.norm()), 1e-30)
+    return float((got - want).norm()) / scale
+
+
+def compare_preprocess(k, p):
+    """The forward kernel's Preprocessed k against the plain p: conic,
+    opacity and radius bit for bit, mean2d and depth within 2 ulp, a rect
+    differing only where mean2d does and by at most one tile."""
+    import torch
+
+    rep = dict(bit_equal={f: bool(torch.equal(getattr(k, f), getattr(p, f)))
+                          for f in ("conic", "opacity", "radius")},
+               max_ulps={f: float(ulps(getattr(k, f), getattr(p, f)).max())
+                         for f in ("mean2d", "depth")})
+    moved = (k.mean2d != p.mean2d).any(-1)
+    rects = {}
+    for f in ("rect_min", "rect_size", "tiles_touched"):
+        diff = (getattr(k, f) != getattr(p, f)).reshape(moved.shape[0],
+                                                        -1).any(-1)
+        rects[f] = dict(
+            differ=int(diff.sum()), differ_unmoved=int((diff & ~moved).sum()),
+            max_abs=int((getattr(k, f) - getattr(p, f)).abs().max()))
+    rep.update(rects=rects, mean2d_moved=int(moved.sum()))
+    rep["ok"] = (all(rep["bit_equal"].values())
+                 and max(rep["max_ulps"].values()) <= 2.0
+                 and not any(r["differ_unmoved"] for r in rects.values())
+                 and rects["rect_min"]["max_abs"] <= 1
+                 and rects["rect_size"]["max_abs"] <= 1)
+    return rep
+
+
+def phase_preprocess_at_main_shapes(model, view, width, seed=0):
+    """The preprocess's kernels (csrc/preprocess.cu) against the plain
+    preprocess on the card at the main paths' shapes: the serving scene's
+    1M Gaussians through the 1024^2 view, its 2048^2 sun and the view at
+    the dual cell's 256^2 MSI canvas, with a seeded alive mask (4 in 5)
+    and a seeded NDC offset, as the flow phase hands it. Forward:
+    compare_preprocess. Backward from seeded cotangents, the affine's and
+    the offset's gradients too: every leaf within 1e-5 (the gap of the
+    norms over the larger norm) of autograd of the plain preprocess and of
+    the kernel's plain twin (preprocess_backward_plain), two calls bit for
+    bit. Times of both kernels, of the plain forward and of the plain
+    forward with autograd's backward, and the byte bounds."""
+    import torch
+
+    from eogs2_tpu_torch.ops.projection import (preprocess_backward_plain,
+                                                preprocess_bwd,
+                                                preprocess_fwd)
+
+    sun_cam, _ = view.sun_camera(f=2)
+    shapes = {"view": (view, width), "sun": (sun_cam, 2 * width),
+              "msi": (view, width // 4)}
+    dev = model.xyz.device
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    with torch.no_grad():
+        ins = [x.detach().contiguous() for x in (
+            model.xyz, model.get_scaling(), model.rotation,
+            model.get_opacity())]
+    n = ins[0].shape[0]
+    alive = torch.rand(n, generator=gen, device=dev) > 0.2
+    offset = 1e-3 * torch.randn((n, 2), generator=gen, device=dev)
+    cts = [torch.randn(s, generator=gen, device=dev)
+           for s in ((n, 2), (n,), (n, 3), (n,))]
+    reps = {}
+    for name, (cam, w) in shapes.items():
+        affine = cam.resize_canvas(w, w).affine.detach().contiguous()
+        args = (*ins, affine, w, w)
+        before = (preprocess_fwd.launches, preprocess_bwd.launches)
+        k = preprocess_fwd(*args, alive=alive, offset=offset)
+        bwd = [preprocess_bwd(*args, cts, offset_grad=True, affine_grad=True)
+               for _ in range(2)]
+        launched = (preprocess_fwd.launches - before[0],
+                    preprocess_bwd.launches - before[1])
+        with torch.no_grad():
+            p = preprocess_plain(*ins, affine, w, w, alive, offset)
+        rep = compare_preprocess(k, p)
+        rep["visible"] = int((k.radius > 0).sum())
+        del k, p
+        leaves = [x.clone().requires_grad_(True) for x in (*ins, affine,
+                                                           offset)]
+        p = preprocess_plain(*leaves[:5], w, w, alive, leaves[5])
+        auto = torch.autograd.grad(
+            sum((c * o).sum() for c, o in zip(cts, p[:4])), leaves)
+        del p, leaves
+        twin = preprocess_backward_plain(*args, cts)
+        rep["bwd_bitwise_repeatable"] = all(
+            torch.equal(a.view(torch.int32), b.view(torch.int32))
+            for a, b in zip(*bwd))
+        rep["bwd_gap_autograd"] = {f: grad_gap(g, a) for f, g, a in
+                                   zip(PREP_LEAVES, bwd[0], auto)}
+        rep["bwd_gap_twin"] = {f: grad_gap(g, t) for f, g, t in
+                               zip(PREP_LEAVES, bwd[0], twin)}
+        del bwd, auto, twin
+        ok = (rep.pop("ok") and launched == (1, 2)
+              and rep["bwd_bitwise_repeatable"]
+              and max(rep["bwd_gap_autograd"].values()) < 1e-5
+              and max(rep["bwd_gap_twin"].values()) < 1e-5)
+        if not ok:
+            raise AssertionError(f"the preprocess kernels disagree with the "
+                                 f"plain preprocess at the {name} render "
+                                 f"(launches {launched}): {rep}")
+
+        def plain_fwd_bwd():
+            leaves = [x.clone().requires_grad_(True)
+                      for x in (*ins, affine, offset)]
+            p = preprocess_plain(*leaves[:5], w, w, alive, leaves[5])
+            torch.autograd.grad(
+                sum((c * o).sum() for c, o in zip(cts, p[:4])), leaves)
+
+        def plain_fwd():
+            with torch.no_grad():
+                preprocess_plain(*ins, affine, w, w, alive, offset)
+
+        rep.update(
+            fwd_ms=time_cuda(lambda: preprocess_fwd(
+                *args, alive=alive, offset=offset), 20),
+            bwd_ms=time_cuda(lambda: preprocess_bwd(
+                *args, cts, offset_grad=True, affine_grad=True), 20),
+            plain_fwd_ms=time_cuda(plain_fwd, 3),
+            plain_fwd_bwd_ms=time_cuda(plain_fwd_bwd, 3),
+            fwd_bound_ms=PREP_FWD_BYTES * n / H100_BYTES_PER_S * 1e3,
+            bwd_bound_ms=PREP_BWD_BYTES * n / H100_BYTES_PER_S * 1e3)
+        reps[name] = rep
+        log(dict(phase="preprocess_at_main_shape", render=name, width=w,
+                 height=w, gaussians=n, **rep, **CARD))
     return reps
 
 
@@ -1008,6 +1203,7 @@ def phase_train(device, scene, scene_s, width=1024, warmup=2, timed=10):
                                                   fused_blend_fwd_plain)
     from eogs2_tpu_torch.ops.knn import mean_knn_dist2
     from eogs2_tpu_torch.ops.pair_pipeline import count_pairs, write_pairs
+    from eogs2_tpu_torch.ops.projection import preprocess_bwd, preprocess_fwd
     from eogs2_tpu_torch.rasterizer import RasterizeConfig
     from eogs2_tpu_torch.train import Trainer, mean_metrics
 
@@ -1033,6 +1229,7 @@ def phase_train(device, scene, scene_s, width=1024, warmup=2, timed=10):
     fused_blend_fwd.launches = 0
     fused_blend_bwd.launches = 0
     count_pairs.launches = write_pairs.launches = 0
+    preprocess_fwd.launches = preprocess_bwd.launches = 0
     steps, step_ms = [], []
     for it in range(warmup + 1, warmup + timed + 1):
         t = time.perf_counter()
@@ -1041,6 +1238,7 @@ def phase_train(device, scene, scene_s, width=1024, warmup=2, timed=10):
         step_ms.append((time.perf_counter() - t) * 1e3)
     k1_launches, k2_launches = fused_blend_fwd.launches, fused_blend_bwd.launches
     emit_launches = (count_pairs.launches, write_pairs.launches)
+    prep_launches = (preprocess_fwd.launches, preprocess_bwd.launches)
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
     if k1_launches != 3 * timed or k2_launches != 3 * timed:
         raise AssertionError(f"launches over {timed} steps: K1 {k1_launches}, "
@@ -1049,6 +1247,10 @@ def phase_train(device, scene, scene_s, width=1024, warmup=2, timed=10):
         raise AssertionError(f"emission (count, write) launches over {timed} "
                              f"steps: {emit_launches} (want {3 * timed} "
                              f"each)")
+    if prep_launches != (3 * timed, 3 * timed):
+        raise AssertionError(f"preprocess (forward, backward) launches over "
+                             f"{timed} steps: {prep_launches} (want "
+                             f"{3 * timed} each)")
     metrics = mean_metrics(steps)
     every = torch.stack([torch.stack([m[k].double() for k in m])
                          for m in steps])
@@ -1067,6 +1269,7 @@ def phase_train(device, scene, scene_s, width=1024, warmup=2, timed=10):
              k1_launches_per_step=k1_launches / timed,
              k2_launches_per_step=k2_launches / timed,
              emit_launches_per_step=sum(emit_launches) / timed,
+             preprocess_launches_per_step=[c / timed for c in prep_launches],
              peak_mem_gib=peak_gib,
              scene_host_s=scene_s, knn_s=knn_s, setup_s=setup_s,
              alive_before=alive0, alive_after=alive1, max_param_change=moved,
@@ -1115,7 +1318,7 @@ def phase_train(device, scene, scene_s, width=1024, warmup=2, timed=10):
                 for k, at in (("k1", k1_at), ("k2", k2_at))
                 for key in ("ms", "bound_ms", "plain_ms")}, **CARD))
     return (k2_at, k1_at, k1_launches, k2_launches, sum(emit_launches),
-            calls[0], tr)
+            calls[0], tr, prep_launches)
 
 
 def leaf_grads(tr):
@@ -2836,6 +3039,7 @@ def phase_eogsplus(device, arrays, iterations=30, fixed_iterations=5,
                                                   fused_blend_bwd_plain,
                                                   fused_blend_fwd,
                                                   fused_blend_fwd_plain)
+    from eogs2_tpu_torch.ops.projection import preprocess_bwd, preprocess_fwd
     from eogs2_tpu_torch.pipeline import render_view_full
     from eogs2_tpu_torch.rasterizer import RasterizeConfig
     from eogs2_tpu_torch.train import Trainer
@@ -3026,26 +3230,33 @@ def phase_eogsplus(device, arrays, iterations=30, fixed_iterations=5,
         raise AssertionError("fixed did not set up msi + pan")
     fused_blend_fwd.launches = 0
     fused_blend_bwd.launches = 0
+    preprocess_fwd.launches = preprocess_bwd.launches = 0
     fixed_on, fixed_steps = timed_steps(tr, range(1, fixed_iterations + 1))
     cfg.optimization.flowmatching.apply_flowmatching = False
     fixed_off, off_steps = timed_steps(
         tr, range(fixed_iterations + 1, 2 * fixed_iterations + 1))
     fk1, fk2 = fused_blend_fwd.launches, fused_blend_bwd.launches
+    fprep = (preprocess_fwd.launches, preprocess_bwd.launches)
     check_metrics(fixed_steps + off_steps, "fixed")
     if fk1 != 6 * 2 * fixed_iterations or fk2 != fk1:
         raise AssertionError(f"fixed: K1 {fk1}, K2 {fk2} launches over "
                              f"{2 * fixed_iterations} steps (6 each)")
+    if fprep != (fk1, fk1):
+        raise AssertionError(f"fixed: preprocess (forward, backward) "
+                             f"launches {fprep} over {2 * fixed_iterations} "
+                             f"steps (6 each)")
     report.update(
         fixed_ms_per_step=statistics.median(fixed_on[2:]),
         fixed_step_ms=fixed_on,
         fixed_ms_per_step_flow_off=statistics.median(fixed_off[2:]),
         fixed_step_ms_flow_off=fixed_off,
         fixed_k1_launches=fk1, fixed_k2_launches=fk2,
+        fixed_preprocess_launches=fprep,
         fixed_metrics={k: float(v) for k, v in fixed_steps[-1].items()})
     log(report)
     del tr, scene
     gc.collect()
-    return k1_launches + fk1, k2_launches + fk2, k1, k2
+    return k1_launches + fk1, k2_launches + fk2, k1, k2, fprep
 
 
 def dense_serve_cfg(model, view, scene, width):
@@ -4408,10 +4619,11 @@ def main(argv=None) -> int:
     phase_build()
     phase_k1_small(device)
     k2_small_err = phase_k2_small(device)
-    per_render, serve_launches, serve_emit, emission = phase_serve(device)
+    (per_render, serve_launches, serve_emit, emission, serve_prep,
+     prep) = phase_serve(device)
     scene, scene_s, arrays = train_scene(device)
     (k2_at, k1_at, k1_launches, k2_launches, train_emit, captured,
-     tr) = phase_train(device, scene, scene_s)
+     tr, train_prep) = phase_train(device, scene, scene_s)
     k2 = k2_at["main"]
     k3, k3_fwd, k3_bwd, k3_launches = phase_k3_at_train_shape(
         device, captured, tr, k1_at["main"], k2)
@@ -4432,8 +4644,8 @@ def main(argv=None) -> int:
     cli_k1, cli_k2 = phase_cli(device, scene)
     del scene
     gc.collect()
-    eplus_k1, eplus_k2, eplus_k1_rep, eplus_k2_rep = phase_eogsplus(device,
-                                                                   arrays)
+    (eplus_k1, eplus_k2, eplus_k1_rep, eplus_k2_rep,
+     dual_prep) = phase_eogsplus(device, arrays)
     gc.collect()
     k4_serve_launches, k4_serve, k4_serve_at = phase_serve_dense(device)
     full_k1, full_k2, full_k1_rep, full_k2_rep = phase_full_eval(device)
@@ -4470,7 +4682,30 @@ def main(argv=None) -> int:
                                          for k, r in at.items()})
 
     emit = emission["view"]
+    prep_view = prep["view"]
     log({"kernels": [
+        dict(name="preprocess (forward and backward kernels)", route="cuda",
+             source="eogs2_tpu_torch/csrc/preprocess.cu",
+             replaces=None,  # XLA ops in JAX (ops/projection.py)
+             launches=dict(forward=serve_prep + train_prep[0] + dual_prep[0],
+                           backward=train_prep[1] + dual_prep[1]),
+             bit_equal_conic_opacity_radius=all(
+                 all(r["bit_equal"].values()) for r in prep.values()),
+             max_ulps_mean2d_depth=max(max(r["max_ulps"].values())
+                                       for r in prep.values()),
+             bwd_max_gap=max(max(*r["bwd_gap_autograd"].values(),
+                                 *r["bwd_gap_twin"].values())
+                             for r in prep.values()),
+             ms=prep_view["fwd_ms"], plain_ms=prep_view["plain_fwd_ms"],
+             bound_ms=prep_view["fwd_bound_ms"], bound_by="bytes",
+             library_ms=None,
+             backward=dict(ms=prep_view["bwd_ms"],
+                           plain_fwd_bwd_ms=prep_view["plain_fwd_bwd_ms"],
+                           bound_ms=prep_view["bwd_bound_ms"],
+                           bound_by="bytes"),
+             at_main_shape={k: {key: r[key] for key in (
+                 "fwd_ms", "bwd_ms", "plain_fwd_ms", "plain_fwd_bwd_ms",
+                 "fwd_bound_ms", "bwd_bound_ms")} for k, r in prep.items()}),
         dict(name="emit_pairs (count and write passes)", route="cuda",
              source="eogs2_tpu_torch/csrc/emit_pairs.cu",
              replaces=None,  # XLA ops in JAX (pair_pipeline._tier_keys*)

@@ -29,6 +29,7 @@ from eogs2_tpu_torch.ops.pair_pipeline import densify_pairs
 from eogs2_tpu_torch.ops.projection import (
     TILE,
     compute_cov2d_direct,
+    preprocess_cuda,
     preprocess_gaussians,
 )
 
@@ -177,8 +178,17 @@ def preprocess(means3d, scales, quats, opacities, affine, width: int,
                height: int, antialiasing: bool = False, alive=None,
                mean2d_ndc_offset=None):
     """The front half of ``rasterize`` and of the a2a path: projection and
-    culling, and the optional [N, 2] NDC offset added to the centers."""
+    culling, and the optional [N, 2] NDC offset added to the centers.
+
+    CUDA tensors take the forward and backward kernels of
+    csrc/preprocess.cu (``preprocess_cuda``) or raise; other tensors the
+    plain tensor code, with autograd's backward."""
     with span("raster.preprocess"):
+        if means3d.device.type == "cuda":
+            return preprocess_cuda(means3d, scales, quats, opacities, affine,
+                                   width, height, antialiasing=antialiasing,
+                                   alive=alive,
+                                   mean2d_ndc_offset=mean2d_ndc_offset)
         cov2d = compute_cov2d_direct(scales, quats, affine, width, height)
         prep = preprocess_gaussians(means3d, None, opacities, affine, width,
                                     height, antialiasing=antialiasing,

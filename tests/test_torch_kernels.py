@@ -15,6 +15,13 @@ per input, max-abs error over the max-abs value < 2e-4 (test_golden.py's
 gradient tolerance; sums over pixels run in another order). K3 equals
 K1/K2 bit for bit (the same arithmetic, another load). The emission's
 two passes (csrc/emit_pairs.cu) equal the plain emission bit for bit.
+The preprocess's forward kernel (csrc/preprocess.cu) equals the plain
+preprocess on the card bit for bit in conic, opacity and radius, to 2 ulp in
+mean2d and depth (the plain projection is a cuBLAS product), and in the
+rects except where that ulp crosses a tile boundary; its backward kernel
+gives autograd's gradients of the plain preprocess and those of its plain
+twin per input within 1e-5 (the gap of the norms over the larger norm), the
+same bits on every call.
 Beside them, render_view_full's copy-out into page-locked host slots
 equals the blocking copies it replaced bit for bit.
 """
@@ -42,6 +49,9 @@ from eogs2_tpu_torch.ops.pair_pipeline import (count_pairs, emit_pairs,
                                                write_pairs)
 from eogs2_tpu_torch.ops.projection import (Preprocessed,
                                             compute_cov2d_direct,
+                                            preprocess_backward_plain,
+                                            preprocess_bwd, preprocess_cuda,
+                                            preprocess_fwd,
                                             preprocess_gaussians)
 from eogs2_tpu_torch.rasterizer import (RasterizeConfig, rasterize,
                                         reference_rasterize)
@@ -766,4 +776,226 @@ def test_render_view_full_copies_out_through_page_locked_slots(cuda,
         assert v is None or kept[k].tobytes() == v.tobytes(), k
     assert part.tobytes() == part_snap.tobytes()
     assert u["units"] == 5 and u["sites"]["serve.to_host"] == 1
-    assert u["counts"] == {"serve.slot.new": 0.6, "serve.slot.reused": 0.4}
+    # and the preprocess kernel once a render (the view and its sun)
+    assert u["counts"] == {"serve.slot.new": 0.6, "serve.slot.reused": 0.4,
+                           "raster.preprocess.cuda": 2.0}
+
+
+def _plain_prep(means, scales, quats, opac, affine, w, h, aa=False,
+                alive=None, offset=None):
+    """rasterizer.preprocess's plain tensor code, run where its inputs lie
+    (on the card the rasterizer takes the kernels)."""
+    cov2d = compute_cov2d_direct(scales, quats, affine, w, h)
+    prep = preprocess_gaussians(means, None, opac, affine, w, h,
+                                antialiasing=aa, alive=alive, cov2d=cov2d)
+    if offset is not None:
+        px = torch.tensor([0.5 * w, 0.5 * h], device=means.device)
+        prep = prep._replace(mean2d=prep.mean2d + offset * px)
+    return prep
+
+
+def _prep_inputs(device, n, seed, degenerate=False):
+    """_scene's Gaussians, an affine whose altitude row has every term, an
+    alive mask, an NDC offset; with ``degenerate`` needles, points and long
+    needles whose dilated det rounds to 0 or below, and Gaussians centred
+    past every edge of the frame, so their rects clamp to the grid."""
+    means, scales, quats, opac, _, affine, _ = _scene(device, n, seed)
+    affine[2] = torch.tensor([0.1, -0.2, 1.0, 0.3], device=device)
+    rng = np.random.RandomState(seed)
+    alive = torch.tensor(rng.rand(n) > 0.2, device=device)
+    offset = torch.tensor(rng.normal(0, 1e-3, (n, 2)), dtype=torch.float32,
+                          device=device)
+    if degenerate:
+        scales[:16, 1:] = 0.0
+        scales[16:24] = 0.0
+        scales[24:40, 0] = torch.tensor(np.geomspace(1e2, 1e5, 16),
+                                        dtype=torch.float32, device=device)
+        scales[24:40, 1:] = 1e-3
+        edge = torch.tensor([[-1.3, 0.0], [1.3, 0.0], [0.0, -1.3],
+                             [0.0, 1.3], [-1.05, -1.05], [1.05, 1.05]],
+                            device=device)
+        means[40:46, :2] = edge
+        scales[40:46] = 0.3
+    return means, scales, quats, opac, affine, alive, offset
+
+
+def _ulps(got, want):
+    """|got - want| in units of the last place of want, or of 1 where
+    |want| < 1 (a projected value that cancels to near 0 keeps the error of
+    its terms)."""
+    w = want.abs().clamp_min(1.0)
+    return (got - want).abs() / (torch.nextafter(w, w + 1) - w)
+
+
+def _check_fwd(k, p):
+    for f in ("conic", "opacity", "radius"):
+        torch.testing.assert_close(getattr(k, f), getattr(p, f), rtol=0,
+                                   atol=0, equal_nan=True, msg=f)
+    for f in ("mean2d", "depth"):
+        a, b = getattr(k, f), getattr(p, f)
+        assert a.dtype == b.dtype and a.shape == b.shape, f
+        assert float(_ulps(a, b).max()) <= 2.0, f
+    # a rect may differ only where mean2d's ulp crossed a tile boundary
+    moved = (k.mean2d != p.mean2d).any(-1)
+    for f in ("rect_min", "rect_size", "tiles_touched"):
+        a, b = getattr(k, f), getattr(p, f)
+        assert a.dtype == torch.int32 and a.shape == b.shape, f
+        diff = (a != b).reshape(a.shape[0], -1).any(-1)
+        assert not (diff & ~moved).any(), f
+        if f != "tiles_touched":
+            assert int((a - b).abs().max()) <= 1, f
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("antialiasing", [False, True])
+@pytest.mark.parametrize("wh,degenerate", [((128, 128), False),
+                                           ((80, 48), False),
+                                           ((96, 96), True)])
+def test_preprocess_kernel_matches_plain(cuda, antialiasing, wh,
+                                         degenerate):
+    """The forward kernel against the plain preprocess on the card, with
+    and without the NDC offset and the alive mask."""
+    w, h = wh
+    means, scales, quats, opac, affine, alive, offset = _prep_inputs(
+        cuda, 2048, seed=3, degenerate=degenerate)
+    for al, off in ((None, None), (alive, offset)):
+        before = preprocess_fwd.launches
+        k = preprocess_fwd(means, scales, quats, opac, affine, w, h,
+                           antialiasing, al, off)
+        assert preprocess_fwd.launches == before + 1
+        p = _plain_prep(means, scales, quats, opac, affine, w, h,
+                        antialiasing, al, off)
+        torch.cuda.synchronize()
+        _check_fwd(k, p)
+        assert int(k.radius.gt(0).sum()) > 1000
+        if degenerate:
+            assert (k.radius[24:40] == 0).any()
+            grid = torch.tensor([(w + 15) // 16, (h + 15) // 16],
+                                device=cuda)
+            edge = slice(40, 46)
+            assert ((k.rect_min[edge] == 0)
+                    | (k.rect_min[edge] + k.rect_size[edge] == grid)
+                    ).any(-1).all()
+
+
+def _grad_gap(got, want):
+    """The gap of the norms over the larger norm; NaN where the other is."""
+    assert torch.equal(got.isnan(), want.isnan())
+    got, want = got.nan_to_num(), want.nan_to_num()
+    scale = max(float(got.norm()), float(want.norm()), 1e-30)
+    return float((got - want).norm()) / scale
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("antialiasing", [False, True])
+@pytest.mark.parametrize("degenerate", [False, True])
+def test_preprocess_backward_kernel_matches_autograd(cuda, antialiasing,
+                                                     degenerate):
+    """Every input's gradient through the two kernels (preprocess_cuda)
+    against autograd of the plain preprocess on the card, the affine's and
+    the NDC offset's too; two backward calls give the same bits, and the
+    backward kernel's gradients are those of its plain twin,
+    preprocess_backward_plain."""
+    w, h = 112, 96
+    ins = _prep_inputs(cuda, 4096, seed=5, degenerate=degenerate)
+    alive = ins[5]
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    cts = [torch.randn(s, generator=gen, device=cuda)
+           for s in ((4096, 2), (4096,), (4096, 3), (4096,))]
+    grads = []
+    for fn in (preprocess_cuda, None):
+        leaves = [x.clone().requires_grad_(True)
+                  for x in ins[:5] + (torch.zeros_like(ins[6]),)]
+        if fn is None:
+            prep = _plain_prep(*leaves[:5], w, h, antialiasing, alive,
+                               leaves[5])
+        else:
+            before = (preprocess_fwd.launches, preprocess_bwd.launches)
+            prep = fn(*leaves[:5], w, h, antialiasing=antialiasing,
+                      alive=alive, mean2d_ndc_offset=leaves[5])
+        loss = sum((c * o).sum() for c, o in zip(cts, prep[:4]))
+        grads.append(torch.autograd.grad(loss, leaves))
+        if fn is not None:
+            assert (preprocess_fwd.launches, preprocess_bwd.launches) == (
+                before[0] + 1, before[1] + 1)
+    torch.cuda.synchronize()
+    for name, got, want in zip(("means3d", "scales", "quats", "opacities",
+                                "affine", "offset"), *grads):
+        assert _grad_gap(got, want) < 1e-5, name
+    again = [preprocess_bwd(*ins[:5], w, h, cts, antialiasing=antialiasing,
+                            offset_grad=True, affine_grad=True)
+             for _ in range(2)]
+    for a, b in zip(*again):
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+    for a, b in zip(again[0], grads[0]):
+        torch.testing.assert_close(a, b, rtol=0, atol=0, equal_nan=True)
+    # and against the kernel's plain twin, the same closed form in tensor code
+    twin = preprocess_backward_plain(*ins[:5], w, h, cts,
+                                     antialiasing=antialiasing)
+    for name, got, want in zip(("means3d", "scales", "quats", "opacities",
+                                "affine", "offset"), again[0], twin):
+        assert _grad_gap(got, want) < 1e-5, name
+
+
+@pytest.mark.cuda
+def test_preprocess_kernels_empty_and_all_culled(cuda):
+    """No Gaussian: empty outputs, zero gradients, a zero affine gradient.
+    Every Gaussian culled (dead, or off the frame): radius, rect size and
+    tiles 0, as the plain preprocess has them; the render is the
+    background's."""
+    means, scales, quats, opac, affine, alive, _ = _prep_inputs(cuda, 512,
+                                                                seed=6)
+    e = [x[:0] for x in (means, scales, quats, opac)]
+    k = preprocess_fwd(*e, affine, 64, 64, alive=alive[:0])
+    assert all(x.shape[0] == 0 for x in k)
+    g = preprocess_bwd(*e, affine, 64, 64, (None,) * 4, offset_grad=True,
+                       affine_grad=True)
+    assert all(x.shape[0] == 0 for x in g[:4] + (g[5],))
+    torch.cuda.synchronize()
+    assert torch.equal(g[4], torch.zeros((3, 4), device=cuda))
+    far = means.clone()
+    far[:, 0] += 5.0  # every centre past the right edge
+    for m, al in ((means, torch.zeros_like(alive)), (far, None)):
+        k = preprocess_fwd(m, scales, quats, opac, affine, 64, 64, alive=al)
+        p = _plain_prep(m, scales, quats, opac, affine, 64, 64, alive=al)
+        torch.cuda.synchronize()
+        _check_fwd(k, p)
+        assert not k.radius.any() and not k.rect_size.any()
+        assert not k.tiles_touched.any()
+    feat = torch.ones((512, 5), device=cuda)
+    bg = torch.tensor([0.3, 0.5, 0.2, -1.0, 0.0], device=cuda)
+    out = rasterize(far, scales, quats, opac, feat, affine, bg, 64, 64,
+                    RasterizeConfig(binning_mode="fused", tile_cull=True))
+    torch.cuda.synchronize()
+    assert int(out.num_pairs) == 0
+    assert torch.equal(out.image, bg[:, None, None].expand(5, 64, 64))
+
+
+@pytest.mark.cuda
+def test_preprocess_kernels_reject_bad_inputs(cuda):
+    means, scales, quats, opac, affine, alive, offset = _prep_inputs(
+        cuda, 64, seed=7)
+    args = [means, scales, quats, opac, affine]
+
+    def fwd(i, x, **kw):
+        a = list(args)
+        a[i] = x
+        return preprocess_fwd(*a, 64, 64, **kw)
+
+    with pytest.raises(ValueError, match="CUDA device"):
+        preprocess_fwd(*(x.cpu() for x in args), 64, 64)
+    with pytest.raises(ValueError, match="contiguous"):
+        fwd(4, affine.cpu())
+    with pytest.raises(ValueError, match="float32"):
+        fwd(1, scales.double())
+    with pytest.raises(ValueError, match=r"\[64, 4\]"):
+        fwd(2, quats[:, :3].contiguous())
+    with pytest.raises(ValueError, match="contiguous"):
+        fwd(2, quats.t().contiguous().t())
+    with pytest.raises(ValueError, match="bool"):
+        fwd(0, means, alive=alive.to(torch.uint8))
+    with pytest.raises(ValueError, match="offset"):
+        fwd(0, means, offset=offset[:32])
+    with pytest.raises(ValueError, match="g_conic"):
+        preprocess_bwd(*args, 64, 64,
+                       (None, None, torch.zeros((64, 2), device=cuda), None))

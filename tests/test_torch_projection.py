@@ -6,8 +6,14 @@ both sides run the same float32 expressions, so any difference is
 operation-order rounding); the integer fields (radius, tile rect, tiles
 touched) must be exactly equal, since they decide which tiles a Gaussian
 is binned into.
+
+The closed-form backward (``preprocess_backward_plain``, the plain twin of
+the card's backward kernel) is held against autograd of the plain forward
+and against JAX's VJP, per leaf as the gap of the norms over the larger
+norm (< 1e-5), NaN where they are NaN.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -129,3 +135,110 @@ def test_cov2d_direct_matches_composed():
     for a_, b_ in zip(*grads):
         scale = np.abs(a_).max() + 1e-6
         np.testing.assert_allclose(a_ / scale, b_ / scale, atol=1e-5)
+
+
+GRAD_GAP = 1e-5
+LEAVES = ("means3d", "scales", "quats", "opacities", "affine", "offset")
+
+
+def _torch_vjp(means, scales, quats, opac, affine, w, h, cts, aa, alive):
+    """Autograd of the plain forward (rasterizer.preprocess on the CPU) with
+    an NDC offset of zeros: the gradients of LEAVES."""
+    from eogs2_tpu_torch.rasterizer import preprocess
+
+    leaves = [_t(x).clone().requires_grad_(True)
+              for x in (means, scales, quats, opac, affine)]
+    off = torch.zeros((leaves[0].shape[0], 2), requires_grad=True)
+    prep = preprocess(*leaves, w, h, antialiasing=aa, alive=alive,
+                      mean2d_ndc_offset=off)
+    loss = sum((_t(c) * o).sum() for c, o in zip(cts, prep[:4]))
+    return torch.autograd.grad(loss, leaves + [off])
+
+
+def _jax_vjp(means, scales, quats, opac, affine, w, h, cts, aa, alive):
+    """JAX's VJP of eogs2_tpu's preprocess with the same offset."""
+    def f(m, s, q, o, a, off):
+        cov = jproj.compute_cov2d_direct(s, q, a, w, h)
+        p = jproj.preprocess_gaussians(m, None, o, a, w, h, antialiasing=aa,
+                                       alive=alive, cov2d=cov)
+        px = jnp.asarray([0.5 * w, 0.5 * h], jnp.float32)
+        return p.mean2d + off * px, p.depth, p.conic, p.opacity
+
+    n = np.asarray(means).shape[0]
+    _, vjp = jax.vjp(f, *(jnp.asarray(x) for x in (means, scales, quats,
+                                                   opac, affine)),
+                     jnp.zeros((n, 2), jnp.float32))
+    return [_t(g) for g in vjp(tuple(jnp.asarray(c) for c in cts))]
+
+
+def _check_grads(got, want):
+    for name, g, w in zip(LEAVES, got, want):
+        assert g.shape == w.shape, name
+        assert torch.equal(g.isnan(), w.isnan()), name
+        g, w = g.nan_to_num(), w.nan_to_num()
+        scale = max(float(g.norm()), float(w.norm()), 1e-30)
+        assert float((g - w).norm()) / scale < GRAD_GAP, name
+
+
+def _cotangents(n, seed):
+    rng = np.random.RandomState(100 + seed)
+    return [rng.normal(size=s).astype(np.float32)
+            for s in ((n, 2), (n,), (n, 3), (n,))]
+
+
+@pytest.mark.parametrize("antialiasing", [False, True])
+@pytest.mark.parametrize("seed,wh", [(0, (64, 64)), (1, (80, 48)),
+                                     (2, (128, 128))])
+def test_backward_twin_matches_autograd_and_jax(seed, wh, antialiasing):
+    """The closed-form gradients of every leaf, the affine's and the NDC
+    offset's too, against autograd of the plain forward and JAX's VJP."""
+    w, h = wh
+    means, scales, quats, opac, _, affine, _ = make_scene(n=256, seed=seed)
+    affine = np.asarray(affine).copy()
+    affine[2] = [0.1, -0.2, 1.0, 0.3]  # an altitude row with every term
+    alive = np.random.RandomState(seed).rand(256) > 0.2
+    cts = _cotangents(256, seed)
+    twin = tproj.preprocess_backward_plain(
+        *(_t(x) for x in (means, scales, quats, opac, affine)), w, h,
+        [_t(c) for c in cts], antialiasing=antialiasing)
+    args = (means, scales, quats, opac, affine, w, h, cts, antialiasing)
+    _check_grads(twin, _torch_vjp(*args, _t(alive)))
+    _check_grads(twin, _jax_vjp(*args, jnp.asarray(alive)))
+
+
+@pytest.mark.parametrize("antialiasing", [False, True])
+def test_backward_twin_degenerate_determinants(antialiasing):
+    """Needles and points (det_cov 0) and long needles whose dilated det
+    rounds to 0 or below (culled; det_safe the constant 1, so no gradient
+    through det): the same gradients, and the same NaN where the antialias
+    ratio divides by a zero det."""
+    n, w, h = 64, 64, 64
+    means, scales, quats, opac, _, affine, _ = make_scene(n=n, seed=9)
+    scales = np.asarray(scales).copy()
+    scales[:16, 1:] = 0.0  # needle: rank-1 covariance
+    scales[16:24] = 0.0  # point: zero covariance
+    scales[24:40, 0] = np.geomspace(1e2, 1e5, 16)  # det rounds to <= 0
+    scales[24:40, 1:] = 1e-3
+    cov = tproj.compute_cov2d_direct(_t(scales), _t(quats), _t(affine), w, h)
+    det = (cov[:, 0] + 0.3) * (cov[:, 2] + 0.3) - cov[:, 1] * cov[:, 1]
+    assert (det[24:40] < 0).any() and (det[24:40] == 0).any()
+    cts = _cotangents(n, 9)
+    twin = tproj.preprocess_backward_plain(
+        *(_t(x) for x in (means, scales, quats, opac, affine)), w, h,
+        [_t(c) for c in cts], antialiasing=antialiasing)
+    args = (means, scales, quats, opac, affine, w, h, cts, antialiasing)
+    _check_grads(twin, _torch_vjp(*args, None))
+    _check_grads(twin, _jax_vjp(*args, None))
+
+
+def test_backward_twin_without_cotangents():
+    """A cotangent left out (None) counts as zero."""
+    means, scales, quats, opac, _, affine, _ = make_scene(n=32, seed=4)
+    ins = [_t(x) for x in (means, scales, quats, opac, affine)]
+    cts = [_t(c) for c in _cotangents(32, 4)]
+    full = tproj.preprocess_backward_plain(*ins, 48, 48,
+                                           [cts[0], None, cts[2], None])
+    zeros = tproj.preprocess_backward_plain(
+        *ins, 48, 48, [cts[0], torch.zeros(32), cts[2], torch.zeros(32)])
+    for a, b in zip(full, zeros):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)

@@ -26,6 +26,12 @@ from eogs2_tpu_torch.pipeline import render_view_full
 from eogs2_tpu_torch.rasterizer import RasterizeConfig
 
 RENDERS_A_STEP = 3  # main, sun, random camera
+# every wait of a fused step with tile cull for the card, by site: 16, as
+# many as the card's sync debug mode reports in such a step
+# (scripts/sync_audit.py)
+CARD_SITES = {"emit.total": 3, "raster.scale_ndc": 3, "camera.row_scale": 3,
+              "camera.inter_shift": 3, "camera.sun_scale": 1,
+              "train.bg_zero": 1, "resample.longest_run": 2}
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -191,20 +197,53 @@ def test_emission_once_per_render_and_reads_by_site(trainer):
         assert u["spans"][name]["count"] == RENDERS_A_STEP, name
     assert u["spans"]["resample"]["count"] == 2
     assert u["spans"]["resample.bwd"]["count"] == 2
-    # every wait of a fused step with tile cull for the card, by site: 20,
-    # as many as the card's sync debug mode reports in such a step
-    # (scripts/sync_audit.py); on the CPU also the plain emission's two
-    # cull masks and the plain blends' ranges
-    card = {"emit.total": 3, "raster.scale_ndc": 3, "raster.px_scale": 1,
-            "projection.px": 3, "camera.row_scale": 3,
-            "camera.inter_shift": 3, "camera.sun_scale": 1,
-            "train.bg_zero": 1, "resample.longest_run": 2}
-    assert sum(card.values()) == 20
-    assert u["sites"] == dict(card, **{"emit.cull_gid": 3,
-                                       "emit.cull_tile": 3,
-                                       "blend_plain.cnt": 6})
+    # the card's 16 waits; on the CPU also the plain preprocess's constants
+    # (one a render, one more at the main render: 20 with the card's), the
+    # plain emission's two cull masks and the plain blends' ranges
+    assert sum(CARD_SITES.values()) == 16
+    assert u["sites"] == dict(CARD_SITES, **{"projection.px": 3,
+                                             "raster.px_scale": 1,
+                                             "emit.cull_gid": 3,
+                                             "emit.cull_tile": 3,
+                                             "blend_plain.cnt": 6})
     assert u["reads"] == sum(u["sites"].values())
     assert u["read_wait_ms"] > 0
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the preprocess kernels run only on "
+                    "the card")
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+def test_card_step_takes_the_preprocess_kernels(cuda):
+    """A fused step on the card launches the preprocess's forward kernel and
+    its backward kernel once a render, inside ``raster.preprocess`` and
+    ``raster.preprocess.bwd``, and waits for the card 16 times: the plain
+    preprocess's ``projection.px`` and ``raster.px_scale`` reads are gone."""
+    scene = scene_from_arrays(make_scene_arrays(
+        n_views=3, width=32, height=32, hf_res=64, n_buildings=2, seed=0,
+        scale=12.0), device=cuda)
+    cfg = tconfig.baseogs(iterations=50)
+    cfg.optimization.iterstart_shadowmapping = 0
+    cfg.optimization.iterstart_L_new_resample = 0
+    tr = tt.Trainer(cfg, scene, RasterizeConfig(binning_mode="fused",
+                                                tile_cull=True),
+                    device=cuda).setup()
+    tr.train_step(1)  # builds the kernels
+    tracer.enable()
+    for it in (2, 3):
+        tr.train_step(it)
+    u = tracer.per_unit("train.step")
+    assert u["units"] == 2
+    for name in ("raster.preprocess", "raster.preprocess.bwd"):
+        assert u["spans"][name]["count"] == RENDERS_A_STEP, name
+    assert u["counts"] == {"raster.preprocess.cuda": RENDERS_A_STEP}
+    assert u["sites"] == CARD_SITES
+    assert u["reads"] == 16
 
 
 def test_dual_step_opens_one_span_a_modality():
